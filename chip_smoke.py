@@ -16,13 +16,26 @@ exits non-zero:
    CPU; every lane of the final state and every returned count must match;
 4. main path: the 5%-churn resolution at N=100,000 (``bench.py``'s recipe:
    2,500 crashes and 2,500 joins, 64 cohorts, spread 2, two racing
-   coordinators), one warm-up and three timed samples on fresh state. The
-   launch counts are zeroed just before it and read just after;
+   coordinators), one warm-up and three timed samples on fresh state;
 5. scale point: ``bench.py``'s crash-1% point at N=1,000,000 (8 cohorts,
-   10,000 crashes, one ``run_to_decision``), a warm-up and one timed run.
+   10,000 crashes, one ``run_to_decision``), a warm-up and one timed run;
+6. kernel_fleet: the delivery kernel with a tenant axis against its plain
+   version, bit for bit, at the fleet shape (256 tenants, 8 cohorts, K=10,
+   n=1,044) with distinct per-tenant epochs in all three delay modes, and
+   at a ragged shape, with timings and the bound;
+7. fleet_engine: a fleet of 6 tenants (N=256, 262 slots, 40 cohorts, the
+   three ``bench.py`` families, a knob mix) through ``run_until_membership``
+   on the card and on the CPU: every stacked lane and result must match,
+   each tenant must match its own single cluster on the card, and the wave
+   loop must make no synchronizing call (``torch.cuda.set_sync_debug_mode``);
+8. fleet_path: ``bench.py``'s fleet point on the port, 256 tenants x 1,024
+   members resolved in one 96-round lockstep wave (telemetry off), a
+   warm-up and three timed samples on fresh fleets, then one profiled wave.
 
-Then the kernels line, the card's name and power limit from ``nvidia-smi``,
-and as the last line ``{"ok": true, "device": {...}}``.
+The delivery kernel's launch count is zeroed just before each of the
+paths 4, 5 and 8 and read just after. Then the kernels line, the card's
+name and power limit from ``nvidia-smi``, and as the last line
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -45,6 +58,10 @@ INT32_OPS_PER_S = 67e12 / 4
 
 HEADLINE = dict(n=100_000, n_join=2_500, n_crash=2_500, k=10, cohorts=64, spread=2)
 TIMED_SAMPLES = 3
+# bench.py's fleet point: B tenants of N members, n_extra = N // 50 extra
+# slots, 8 cohorts, K=10, fd_threshold 3, spread 2, one 96-round wave.
+FLEET = dict(tenants=256, n=1_024, n_extra=20, k=10, cohorts=8, spread=2, max_steps=96)
+FLEET_TIMED_SAMPLES = 3
 
 
 def check(cond, message):
@@ -56,19 +73,22 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def cuda_ms(fn, reps=30, warmup=5):
-    """Median milliseconds of ``fn`` on the card, one pair of CUDA events per
-    call, after ``warmup`` calls."""
+def cuda_ms(fn, reps=30, warmup=5, runs=3):
+    """Milliseconds of one call of ``fn`` on the card: after ``warmup``
+    calls, the median over ``runs`` of one pair of CUDA events around
+    ``reps`` calls back to back, divided by ``reps``. Queued calls keep the
+    device busy, so a short kernel's launch gap does not count."""
     for _ in range(warmup):
         fn()
     times = []
-    for _ in range(reps):
+    for _ in range(runs):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
@@ -86,29 +106,34 @@ def delivery_ops_per_draw(spread, permille):
     return ops
 
 
-def delivery_bound(c, k, n, spread, permille):
-    """(bound_ms, bound_by) of one delivery call: each input read once, the
-    output written once, against the operations its draws make."""
+def delivery_bound(c, k, n, spread, permille, t=1):
+    """(bound_ms, bound_by) of one delivery call over ``t`` tenants: each
+    input read once, the output written once, against the operations its
+    draws make."""
     w = (c + 31) // 32
-    nbytes = 4 * (w * k * n + k * n + 1 + c * n)
-    ops = c * n * k * delivery_ops_per_draw(spread, permille)
+    nbytes = 4 * t * (w * k * n + k * n + 1 + c * n)
+    ops = t * c * n * k * delivery_ops_per_draw(spread, permille)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def delivery_inputs(c, k, n, seed, dev):
+def delivery_inputs(c, k, n, seed, dev, t=None):
+    """Seeded delivery inputs for one cluster, or with ``t`` for a fleet of
+    ``t`` tenants with distinct epochs."""
     from rapid_tpu_torch import _u32
 
     rng = np.random.default_rng(seed)
     w = (c + 31) // 32
-    blocked = rng.integers(0, 2**32, size=(w * k, n), dtype=np.uint32)
-    blocked &= rng.integers(0, 2**32, size=(w * k, n), dtype=np.uint32)  # ~1/4 bits set
-    age = rng.integers(-3, 6, size=(k, n)).astype(np.int32)
-    age[rng.random((k, n)) < 0.2] = -(1 << 30)  # edges that never fired
+    lead = () if t is None else (t,)
+    blocked = rng.integers(0, 2**32, size=lead + (w * k, n), dtype=np.uint32)
+    blocked &= rng.integers(0, 2**32, size=lead + (w * k, n), dtype=np.uint32)  # ~1/4 bits set
+    age = rng.integers(-3, 6, size=lead + (k, n)).astype(np.int32)
+    age[rng.random(lead + (k, n)) < 0.2] = -(1 << 30)  # edges that never fired
+    epoch = [seed % 7] if t is None else rng.permutation(4 * t)[:t]
     return (
         _u32.from_numpy(blocked, dev),
         torch.from_numpy(age).to(dev),
-        torch.tensor([seed % 7], dtype=torch.int32, device=dev),
+        torch.tensor(epoch, dtype=torch.int32, device=dev),
     )
 
 
@@ -221,32 +246,44 @@ def phase_main_path(dev):
     return total_launches
 
 
-def profile_churn(dev):
-    """One more main-path sample under torch.profiler: device busy share of
-    the profiled wall clock and the kernels that take the most device time."""
+def profile_run(dev, run):
+    """``run()`` once under torch.profiler: the device busy share of the
+    profiled wall clock, the delivery kernel's share of device time and the
+    kernels that take the most device time. Returns (run's result,
+    profile)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    vc, _ = churn_cluster(HEADLINE["n"], HEADLINE["n_join"], HEADLINE["n_crash"],
-                          HEADLINE["cohorts"], 9, dev)
     torch.cuda.synchronize(dev)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
-        rounds, _, resolved, _ = resolve(vc, HEADLINE["n"])
+        result = run()
         torch.cuda.synchronize(dev)
         wall_ms = (time.perf_counter() - start) * 1e3
-    check(resolved, "profiled churn did not resolve")
     # Kernel rows only: CPU-side op rows carry their kernels' device time too.
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    delivery_ms = sum(e.self_device_time_total for e in kernels
+                      if "delivery_new_bits_kernel" in e.key) / 1e3
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:10]
-    return {
-        "wall_ms": wall_ms, "rounds": rounds, "device_ms": device_ms,
+    return result, {
+        "wall_ms": wall_ms, "device_ms": device_ms,
         "device_busy_share": device_ms / wall_ms,
+        "delivery_device_ms": delivery_ms,
+        "delivery_share": delivery_ms / device_ms if device_ms else None,
         "device_kernels": sum(e.count for e in kernels),
         "top": [[e.key[:80], e.count, e.self_device_time_total / 1e3] for e in top],
     }
+
+
+def profile_churn(dev):
+    """One more main-path sample under torch.profiler."""
+    vc, _ = churn_cluster(HEADLINE["n"], HEADLINE["n_join"], HEADLINE["n_crash"],
+                          HEADLINE["cohorts"], 9, dev)
+    (rounds, _, resolved, _), prof = profile_run(dev, lambda: resolve(vc, HEADLINE["n"]))
+    check(resolved, "profiled churn did not resolve")
+    return {"rounds": rounds, **prof}
 
 
 def phase_scale_point(dev):
@@ -257,6 +294,7 @@ def phase_scale_point(dev):
     n, cohorts = 1_000_000, 8
     n_crash = n // 100
     runs = []
+    delivery_new_bits.launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
     for seed in (7, 8):  # bench.py's warm-up seed, then its timed seed
         vc = VirtualCluster.create(
@@ -275,8 +313,171 @@ def phase_scale_point(dev):
         runs.append(dict(warmup=seed == 7, ms=ms, rounds=rounds,
                          host_reads=_host.read.count - reads0,
                          kernel_launches=delivery_new_bits.launches - launches0))
+    launches = delivery_new_bits.launches
     emit({"phase": "scale_point", "n": n, "cohorts": cohorts, "crashes": n_crash, "runs": runs,
           "peak_memory_bytes": torch.cuda.max_memory_allocated(dev)})
+    return launches
+
+
+def phase_kernel_fleet(dev, headline_modes):
+    from rapid_tpu_torch import _u32
+    from rapid_tpu_torch.ops.kernels import delivery_new_bits, delivery_new_bits_ref
+
+    t, c, k, n = FLEET["tenants"], FLEET["cohorts"], FLEET["k"], FLEET["n"] + FLEET["n_extra"]
+    modes = []
+    for spread, permille in ((0, 1000), (2, 1000), (3, 300)):
+        blocked, age, epoch = delivery_inputs(c, k, n, spread * 10 + 2, dev, t=t)
+        args = (blocked, age, epoch, k, c, spread, permille)
+        got, want = delivery_new_bits(*args), delivery_new_bits_ref(*args)
+        torch.cuda.synchronize()
+        err = int((_u32.widen(got) - _u32.widen(want)).abs().max())
+        check(torch.equal(got, want),
+              f"batched delivery kernel differs (spread={spread}, permille={permille})")
+        bound_ms, bound_by = delivery_bound(c, k, n, spread, permille, t=t)
+        headline = next(m for m in headline_modes if m["spread"] == spread)
+        modes.append(dict(
+            spread=spread, permille=permille, max_abs_err=err,
+            ms=cuda_ms(lambda: delivery_new_bits(*args)),
+            plain_ms=cuda_ms(lambda: delivery_new_bits_ref(*args), reps=20),
+            bound_ms=bound_ms, bound_by=bound_by,
+            headline_ms=headline["ms"], headline_bound_ms=headline["bound_ms"],
+        ))
+    rt, rc, rn = 3, 40, 77
+    blocked, age, epoch = delivery_inputs(rc, k, rn, 5, dev, t=rt)
+    args = (blocked, age, epoch, k, rc, 2, 1000)
+    check(torch.equal(delivery_new_bits(*args), delivery_new_bits_ref(*args)),
+          f"batched delivery kernel differs at t={rt} c={rc} n={rn}")
+    emit({"phase": "kernel_fleet", "shape": {"t": t, "c": c, "k": k, "n": n}, "modes": modes,
+          "ragged_bit_exact": [rt, rc, rn, 2, 1000]})
+    return modes
+
+
+def fleet_clusters(tenants, n, n_extra, cohorts, seed0, device, knobs=((9, 4), (8, 3))):
+    """``bench.py``'s ``build_fleet``: tenants cycling the crash-wave,
+    join-wave and equal-churn families by ``i % 3``, (H, L) cycling
+    ``knobs``, seeds ``seed0 + i``. Returns (clusters, targets)."""
+    from rapid_tpu_torch.models.virtual_cluster import VirtualCluster
+
+    clusters, targets = [], []
+    for i in range(tenants):
+        h, l = knobs[i % len(knobs)]
+        vc = VirtualCluster.create(
+            n, n_slots=n + n_extra, k=FLEET["k"], h=h, l=l, cohorts=cohorts, fd_threshold=3,
+            seed=seed0 + i, delivery_spread=FLEET["spread"], device=device,
+        )
+        vc.assign_cohorts_roundrobin()
+        rng = np.random.default_rng(seed0 + 10_000 + i)
+        vc.stagger_fd_counts(rng, spread_rounds=3)
+        family = i % 3
+        if family != 1:  # crash wave, or the crash half of equal churn
+            vc.crash(rng.choice(n, size=n_extra, replace=False))
+        if family != 0:  # join wave, or the join half of equal churn
+            vc.inject_join_wave(np.arange(n, n + n_extra))
+        targets.append(n + n_extra * (int(family == 1) - int(family == 0)))
+        clusters.append(vc)
+    return clusters, targets
+
+
+def phase_fleet_engine(dev):
+    from rapid_tpu_torch.convert import state_to_numpy
+    from rapid_tpu_torch.tenancy import TenantFleet
+    from rapid_tpu_torch.tenancy.fleet import fleet_wave
+
+    b, n, n_extra, cohorts = 6, 256, 6, 40
+    knobs = ((9, 4), (8, 3), (7, 2))
+    wave = dict(max_steps=FLEET["max_steps"], max_cuts=4, min_cuts=1)
+    results, lanes = {}, {}
+    for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        clusters, targets = fleet_clusters(b, n, n_extra, cohorts, 300, device, knobs)
+        fleet = TenantFleet.from_clusters(clusters)
+        results[where] = [r.tolist() for r in fleet.run_until_membership(targets, **wave)]
+        lanes[where] = {**state_to_numpy(fleet.state), **state_to_numpy(fleet.faults)}
+    check(results["card"] == results["cpu"], f"fleet results differ: {results}")
+    rounds, cuts, resolved, sizes = results["card"]
+    check(all(resolved), f"B={b} fleet did not resolve: {results['card']}")
+    for field, want in lanes["cpu"].items():
+        check(np.array_equal(lanes["card"][field], want), f"fleet lane {field} differs card vs cpu")
+
+    singles, _ = fleet_clusters(b, n, n_extra, cohorts, 300, dev, knobs)
+    for i, vc in enumerate(singles):
+        r, c, res, sz = vc.run_until_membership(targets[i], **wave)
+        check((r, c, res, list(sz)) == (rounds[i], cuts[i], resolved[i], sizes[i][:c]),
+              f"tenant {i} differs from its single cluster: {(r, c, res, sz)}")
+        for field, value in state_to_numpy(vc.state).items():
+            check(np.array_equal(lanes["card"][field][i], value),
+                  f"tenant {i} lane {field} differs from its single cluster")
+
+    # The wave loop makes no synchronizing call: run it once more with
+    # every sync turned into an error (inputs built before).
+    clusters, _ = fleet_clusters(b, n, n_extra, cohorts, 300, dev, knobs)
+    fleet = TenantFleet.from_clusters(clusters)
+    target_t = torch.tensor(targets, dtype=torch.int32, device=dev)
+    min_cuts = torch.ones_like(target_t)
+    torch.cuda.synchronize(dev)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fleet_wave(fleet.cfg, fleet.state, fleet.faults, fleet.knobs, target_t,
+                         wave["max_steps"], wave["max_cuts"], min_cuts)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check([x.tolist() for x in out[1:]] == results["card"], "sync-checked wave differs")
+    emit({"phase": "fleet_engine", "tenants": b, "n": n, "n_slots": n + n_extra,
+          "cohorts": cohorts, "knobs": [list(kn) for kn in knobs], "rounds": rounds,
+          "cuts": cuts, "sizes": sizes, "lanes_bit_exact": len(lanes["cpu"]),
+          "singles_bit_exact": b, "wave_sync_free": True})
+
+
+def phase_fleet_path(dev):
+    from rapid_tpu_torch import _host
+    from rapid_tpu_torch.ops.kernels import delivery_new_bits
+    from rapid_tpu_torch.tenancy import TenantFleet
+
+    b, n, n_extra = FLEET["tenants"], FLEET["n"], FLEET["n_extra"]
+    wave = dict(max_steps=FLEET["max_steps"], max_cuts=4, min_cuts=1)
+
+    def fresh(seed0):
+        clusters, targets = fleet_clusters(b, n, n_extra, FLEET["cohorts"], seed0, dev)
+        fleet = TenantFleet.from_clusters(clusters)
+        fleet.sync()
+        return fleet, targets
+
+    delivery_new_bits.launches = 0
+    samples = []
+    for rep in range(1 + FLEET_TIMED_SAMPLES):
+        fleet, targets = fresh(50_000 if rep == 0 else 60_000 + 1_000 * (rep - 1))
+        torch.cuda.reset_peak_memory_stats(dev)
+        launches0, reads0 = delivery_new_bits.launches, _host.read.count
+        start = time.perf_counter()
+        rounds, cuts, resolved, sizes = fleet.run_until_membership(targets, **wave)
+        fleet.sync()
+        ms = (time.perf_counter() - start) * 1e3
+        launches = delivery_new_bits.launches - launches0
+        reads = _host.read.count - reads0
+        check(resolved.all(), f"fleet tenants unresolved: {np.nonzero(~resolved)[0].tolist()}")
+        check(launches == wave["max_steps"],
+              f"{launches} kernel launches in a {wave['max_steps']}-round wave")
+        check(reads == 1, f"the wave made {reads} host reads")
+        check((fleet.membership_sizes() == np.asarray(targets)).all(), "a tenant missed its target")
+        samples.append(dict(
+            warmup=rep == 0, ms=ms, view_changes=int(cuts.sum()),
+            view_changes_per_sec=int(cuts.sum()) / (ms / 1e3),
+            max_tenant_rounds=int(rounds.max()), host_reads=reads, kernel_launches=launches,
+            peak_memory_bytes=torch.cuda.max_memory_allocated(dev),
+        ))
+    total_launches = delivery_new_bits.launches
+    fleet, targets = fresh(70_000)
+    (_, _, resolved, _), prof = profile_run(
+        dev, lambda: fleet.run_until_membership(targets, **wave)
+    )
+    check(resolved.all(), "profiled fleet wave did not resolve")
+    timed = [s["ms"] for s in samples if not s["warmup"]]
+    emit({"phase": "fleet_path", "tenants": b, "n": n, "n_slots": n + n_extra,
+          "cohorts": FLEET["cohorts"], "rounds_per_wave": wave["max_steps"], "telemetry": "off",
+          "samples": samples, "median_ms": statistics.median(timed),
+          "median_view_changes_per_sec": statistics.median(
+              s["view_changes_per_sec"] for s in samples if not s["warmup"]),
+          "profile": prof})
+    return total_launches
 
 
 def main() -> int:
@@ -299,22 +500,27 @@ def main() -> int:
 
     modes = phase_kernel(dev)
     phase_engine(dev)
-    launches = phase_main_path(dev)
-    phase_scale_point(dev)
+    launches = {"churn": phase_main_path(dev), "scale_point": phase_scale_point(dev)}
+    fleet_modes = phase_kernel_fleet(dev, modes)
+    phase_fleet_engine(dev)
+    launches["fleet_wave"] = phase_fleet_path(dev)
 
     main_mode = next(m for m in modes if m["spread"] == HEADLINE["spread"] and m["permille"] >= 1000)
+    fleet_mode = next(m for m in fleet_modes if m["spread"] == FLEET["spread"])
     emit({"kernels": [{
         "name": "delivery_new_bits",
         "route": "cuda",
         "source": "rapid_tpu_torch/csrc/delivery.cu",
         "replaces": "rapid_tpu/ops/pallas_kernels.py:180",
-        "launches": launches,
-        "max_abs_err": max(m["max_abs_err"] for m in modes),
+        "launches": sum(launches.values()),
+        "launches_by_path": launches,
+        "max_abs_err": max(m["max_abs_err"] for m in modes + fleet_modes),
         "ms": main_mode["ms"],
         "plain_ms": main_mode["plain_ms"],
         "bound_ms": main_mode["bound_ms"],
         "bound_by": main_mode["bound_by"],
         "library_ms": None,
+        "fleet_shape": {key: fleet_mode[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
     }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,12 +3,13 @@
 The port never sees a JAX array. A caller holding the JAX package's state
 turns it into numpy (``np.asarray(getattr(state, field))``) and builds the
 port's state from that; uint32 lanes become stored int32 bit patterns
-(:mod:`rapid_tpu_torch._u32`) and come back out as uint32.
+(:mod:`rapid_tpu_torch._u32`) and come back out as uint32. A fleet's
+stacked lanes carry a leading ``[t]`` axis (``tenants=t``).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -25,44 +26,53 @@ from rapid_tpu_torch.models.state import (
 _NUMPY = {"u32": np.uint32, "i32": np.int32, "bool": np.bool_}
 
 
-def _expected_shape(field: str, cfg: EngineConfig) -> tuple:
+def _expected_shape(field: str, cfg: EngineConfig, tenants) -> tuple:
     dims = {"n": cfg.n, "k": cfg.k, "c": cfg.c}
-    return tuple(dims[s] for s in LANES[field][0])
+    lead = () if tenants is None else (tenants,)
+    return lead + tuple(dims[s] for s in LANES[field][0])
 
 
-def _lane_from_numpy(field: str, arr, cfg: EngineConfig, device) -> torch.Tensor:
+def _lane_from_numpy(field: str, arr, cfg: EngineConfig, device, tenants) -> torch.Tensor:
     kind = LANES[field][1]
     a = np.asarray(arr)
-    if a.shape != _expected_shape(field, cfg):
-        raise ValueError(f"lane {field!r}: shape {a.shape}, expected {_expected_shape(field, cfg)}")
+    want = _expected_shape(field, cfg, tenants)
+    if a.shape != want:
+        raise ValueError(f"lane {field!r}: shape {a.shape}, expected {want}")
     if kind == "u32":
         return _u32.from_numpy(a, device)
     return torch.from_numpy(np.array(a, dtype=_NUMPY[kind])).to(device)
 
 
-def _from_numpy(cls, cfg: EngineConfig, arrays: Dict[str, np.ndarray], device):
+def _from_numpy(cls, cfg: EngineConfig, arrays: Dict[str, np.ndarray], device, tenants):
     missing = set(cls._fields) - set(arrays)
     if missing:
         raise KeyError(f"{cls.__name__} lanes missing: {sorted(missing)}")
     dev = torch.device(device)
-    return cls(**{f: _lane_from_numpy(f, arrays[f], cfg, dev) for f in cls._fields})
+    return cls(**{f: _lane_from_numpy(f, arrays[f], cfg, dev, tenants) for f in cls._fields})
 
 
-def state_from_numpy(cfg: EngineConfig, arrays: Dict[str, np.ndarray], device) -> EngineState:
+def state_from_numpy(
+    cfg: EngineConfig, arrays: Dict[str, np.ndarray], device, tenants: Optional[int] = None
+) -> EngineState:
     """An :class:`EngineState` on ``device`` from one numpy array per field
-    (the JAX package's wide layout: uint32, int32 and bool lanes)."""
-    return _from_numpy(EngineState, cfg, arrays, device)
+    (the JAX package's wide layout: uint32, int32 and bool lanes); with
+    ``tenants=t``, a fleet's stacked state, every lane ``[t, ...]``."""
+    return _from_numpy(EngineState, cfg, arrays, device, tenants)
 
 
-def faults_from_numpy(cfg: EngineConfig, arrays: Dict[str, np.ndarray], device) -> FaultInputs:
-    """A :class:`FaultInputs` on ``device`` from numpy arrays."""
-    return _from_numpy(FaultInputs, cfg, arrays, device)
+def faults_from_numpy(
+    cfg: EngineConfig, arrays: Dict[str, np.ndarray], device, tenants: Optional[int] = None
+) -> FaultInputs:
+    """A :class:`FaultInputs` on ``device`` from numpy arrays (stacked with
+    ``tenants=t``)."""
+    return _from_numpy(FaultInputs, cfg, arrays, device, tenants)
 
 
 def state_to_numpy(state) -> Dict[str, np.ndarray]:
     """Every lane of an :class:`EngineState`, :class:`FaultInputs` or
-    :class:`StepEvents` as numpy, at the JAX package's dtypes. Raises if a
-    lane carries another dtype than the layout says."""
+    :class:`StepEvents` (one cluster's or a fleet's stacked lanes) as
+    numpy, at the JAX package's dtypes. Raises if a lane carries another
+    dtype than the layout says."""
     out = {}
     for field, value in state._asdict().items():
         kind = LANES[field][1]

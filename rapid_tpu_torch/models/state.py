@@ -14,6 +14,7 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 
 from rapid_tpu_torch.ops.hashing import masked_set_hash
+from rapid_tpu_torch.ops.kernels import per_batch
 from rapid_tpu_torch.ops.rings import ring_perms, ring_topology_from_perm
 
 #: Sentinel fire round of an edge whose alert has not fired.
@@ -187,6 +188,28 @@ class StepEvents(NamedTuple):
     max_votes: torch.Tensor  # 0-d int32
     prop_hi: torch.Tensor  # [c] stored uint32, before any view-change reset
     prop_lo: torch.Tensor  # [c] stored uint32
+
+
+def map_lanes(fn, tree):
+    """``fn`` applied to every lane of an :class:`EngineState`,
+    :class:`FaultInputs` or :class:`StepEvents`; a tree of the same type."""
+    return type(tree)(*map(fn, tree))
+
+
+def stack_lanes(trees):
+    """B same-shape trees (states, fault masks or events) stacked lane by
+    lane along a new leading tenant axis (the JAX package's
+    ``stack_pytrees``)."""
+    return type(trees[0])(*(torch.stack(lanes) for lanes in zip(*trees)))
+
+
+def select_lanes(cond: torch.Tensor, new, old):
+    """Per-tenant select over whole trees: lane by lane, tenant i takes
+    ``new`` where ``cond[i]`` and ``old`` elsewhere (what ``jax.vmap``
+    makes of a ``lax.cond`` or a frozen ``fori_loop`` lane)."""
+    return type(new)(
+        *(torch.where(per_batch(cond, a), a, b) for a, b in zip(new, old))
+    )
 
 
 def resolve_device(device=None) -> torch.device:

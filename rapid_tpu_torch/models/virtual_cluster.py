@@ -7,19 +7,28 @@ cohort delivery -> watermark cut detection -> fast-round votes -> quorum
 tally -> classic fallback when due. A decided round is followed by the view
 change.
 
+The round body works on lanes with a leading tenant axis ``[t, ...]``: a
+single cluster runs it at ``t = 1`` (its state gains the axis on the way in
+and loses it on the way out), a fleet (:mod:`rapid_tpu_torch.tenancy`) at
+its tenant count, with the per-tenant knobs (``h``, ``l``,
+``fd_threshold``, ``fallback_rounds``) as ``[t]`` tensors in the config.
+
 The JAX engine keeps its loops and ``lax.cond`` gates on the device. Here
 the loops are Python loops, and each gate becomes one of two things:
 
 - a device-side select where both branches are cheap and the result is the
   same: alert delivery is always computed (by the CUDA kernel on a card) and
   zeroed when ``need_delivery`` is false;
-- a host branch on one counted read (:func:`rapid_tpu_torch._host.read`)
-  where the branch is expensive and rare: implicit invalidation, the
-  classic attempt and the view change.
+- for the single cluster, a host branch on one counted read
+  (:func:`rapid_tpu_torch._host.read`) where the branch is expensive and
+  rare: implicit invalidation, the classic attempt and the view change. A
+  fleet computes them for every tenant instead (``select=True``) and keeps
+  each tenant's result where its gate is set, as ``jax.vmap`` turns the
+  conds into selects, so its round makes no read.
 
-A round therefore makes two reads in the common case: the invalidation gate
-and the packed (fast decision, fallback due) pair. A round whose fallback is
-due makes a third.
+A single-cluster round therefore makes two reads in the common case: the
+invalidation gate and the packed (fast decision, fallback due) pair. A
+round whose fallback is due makes a third.
 """
 
 from __future__ import annotations
@@ -37,13 +46,14 @@ from rapid_tpu_torch.models.state import (
     FaultInputs,
     StepEvents,
     initial_state,
+    map_lanes,
     resolve_device,
     validate_config,
 )
 from rapid_tpu_torch.ops.consensus import tally_candidates
 from rapid_tpu_torch.ops.cut_detection import cohort_watermark_pass
 from rapid_tpu_torch.ops.hashing import masked_set_hash
-from rapid_tpu_torch.ops.kernels import delivery_new_bits, popcount32
+from rapid_tpu_torch.ops.kernels import delivery_new_bits, per_batch, popcount32
 from rapid_tpu_torch.ops.rings import predecessor_of_keys, ring_topology_from_perm
 
 
@@ -52,52 +62,78 @@ def cohort_words(c: int) -> int:
     return (c + 31) // 32
 
 
-def _edge_masks(cfg: EngineConfig, state: EngineState, faults: FaultInputs):
-    """Per-edge observer masks: ``(observer_active[n, k], blocked_rows[w*k,
-    n])``. ``blocked_rows`` packs "cohort c cannot hear the observer of edge
-    (subject, ring)" over cohorts: row ``wi*k + ring``, bit j = cohort
-    ``32*wi + j``. Fixed between view changes, so loops compute it once per
-    configuration."""
-    n, k, c = cfg.n, cfg.k, cfg.c
-    w = cohort_words(c)
-    obs = state.obs_idx.T  # [n, k]
-    obs_clamped = obs.clamp(0, n - 1).to(torch.int64)
-    active = state.alive & ~faults.crashed
-    observer_active = (obs >= 0) & active[obs_clamped]
+def _one(tree):
+    """One cluster's lanes as a fleet of one (a leading axis of 1)."""
+    return map_lanes(lambda x: x.unsqueeze(0), tree)
 
-    rxb = torch.zeros((w * 32, n), dtype=torch.int64, device=obs.device)
-    rxb[:c] = faults.rx_block.to(torch.int64)
-    shifts = torch.arange(32, dtype=torch.int64, device=obs.device)
-    words = _u32.narrow((rxb.view(w, 32, n) << shifts[None, :, None]).sum(1))  # [w, n]
-    blocked_rows = words[:, obs_clamped.T].reshape(w * k, n)
-    return observer_active, blocked_rows
+
+def _only(tree):
+    """The lanes of a fleet of one, without the tenant axis."""
+    return map_lanes(lambda x: x.squeeze(0), tree)
+
+
+def _take(lane: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``lane[i, idx[i]]`` for every tenant i: the single cluster's
+    ``lane[idx]`` over the last axis of ``[t, m]`` lanes with ``[t, ...]``
+    indices, clamped into range (JAX clamps; torch would raise, or assert
+    on a card)."""
+    at = idx.clamp(0, lane.shape[-1] - 1).to(torch.int64)
+    return torch.gather(lane, 1, at.reshape(at.shape[0], -1)).view(at.shape)
+
+
+def _edge_masks(cfg: EngineConfig, state: EngineState, faults: FaultInputs):
+    """Per-edge observer masks: ``(observer_active[t, n, k],
+    blocked_rows[t, w*k, n])``. ``blocked_rows`` packs "cohort c cannot
+    hear the observer of edge (subject, ring)" over cohorts: row ``wi*k +
+    ring``, bit j = cohort ``32*wi + j``. Fixed between view changes, so
+    loops compute it once per configuration."""
+    n, k, c = cfg.n, cfg.k, cfg.c
+    t = state.alive.shape[0]
+    w = cohort_words(c)
+    dev = state.alive.device
+    obs = state.obs_idx  # [t, k, n]: observer of (ring, subject)
+    at = obs.clamp(0, n - 1).to(torch.int64)
+    active = state.alive & ~faults.crashed
+    observed = (obs >= 0) & torch.gather(active, 1, at.view(t, k * n)).view(t, k, n)
+    observer_active = observed.transpose(1, 2).contiguous()  # [t, n, k]
+
+    shifts = torch.arange(c, dtype=torch.int64, device=dev) % 32
+    cohort_bits = faults.rx_block.to(torch.int64) << shifts[:, None]  # [t, c, n]
+    words = _u32.narrow(
+        torch.stack([cohort_bits[:, 32 * wi : 32 * (wi + 1)].sum(1) for wi in range(w)], 1)
+    )  # [t, w, n]
+    blocked_rows = torch.gather(words, 2, at.view(t, 1, k * n).expand(t, w, k * n))
+    return observer_active, blocked_rows.view(t, w * k, n)
 
 
 def _fd_tick(cfg: EngineConfig, state: EngineState, faults: FaultInputs, observer_active):
     """Every observer probes its subjects; edges past the failure threshold
     fire one DOWN alert. Counter mode (``fd_window == 0``) or the windowed
     policy (a uint32 bit-history per edge)."""
-    subject_down = faults.crashed[:, None] | faults.probe_fail
-    probe_failed = observer_active & subject_down & state.alive[:, None]
+    alive = state.alive[:, :, None]
+    subject_down = faults.crashed[:, :, None] | faults.probe_fail
+    probe_failed = observer_active & subject_down & alive
+    threshold = per_batch(cfg.fd_threshold, state.fd_count)
     if cfg.fd_window:
-        probed = observer_active & state.alive[:, None]
+        probed = observer_active & alive
         fd_count = torch.where(probed, state.fd_count + 1, state.fd_count)
         window_mask = (1 << cfg.fd_window) - 1
         shifted = ((_u32.widen(state.fd_hist) << 1) | probe_failed.to(torch.int64)) & window_mask
         fd_hist = torch.where(probed, _u32.narrow(shifted), state.fd_hist)
-        past_threshold = (popcount32(fd_hist) >= cfg.fd_threshold) & (fd_count >= cfg.fd_window)
+        past_threshold = (popcount32(fd_hist) >= threshold) & (fd_count >= cfg.fd_window)
     else:
         fd_count = torch.where(probe_failed, state.fd_count + 1, state.fd_count)
         fd_hist = state.fd_hist
-        past_threshold = fd_count >= cfg.fd_threshold
-    fire = past_threshold & ~state.fd_fired & state.alive[:, None]
+        past_threshold = fd_count >= threshold
+    fire = past_threshold & ~state.fd_fired & alive
     return fd_count, fd_hist, state.fd_fired | fire, fire
 
 
 def _deliver_alerts(cfg: EngineConfig, state: EngineState, fire_round, blocked_rows):
-    """Per-cohort delivered alert bitmasks ``[c, n]``: the delivery kernel
-    on a card, its plain version on the CPU."""
-    age_kn = (state.round_idx - fire_round.T).contiguous()
+    """Per-cohort delivered alert bitmasks ``[t, c, n]``: one launch of the
+    delivery kernel for every tenant on a card, its plain version on the
+    CPU."""
+    age_kn = (state.round_idx[:, None, None] - fire_round.transpose(1, 2)).contiguous()
     return delivery_new_bits(
         blocked_rows, age_kn, state.config_epoch, cfg.k, cfg.c,
         cfg.delivery_spread, cfg.delivery_prob_permille,
@@ -110,19 +146,22 @@ def _rotation_seed_w(epoch_w: torch.Tensor, j: int) -> torch.Tensor:
 
 
 def _classic_attempt(cfg: EngineConfig, state: EngineState, faults: FaultInputs, announced, cp):
-    """One classic-Paxos attempt with ``cfg.concurrent_coordinators``
-    rank-ordered racers (Paxos.java:93-238). Returns the acceptor lanes,
-    the 0-d decided flag and the winning cohort (0-d int32, -1 if none)."""
+    """One classic-Paxos attempt per tenant with
+    ``cfg.concurrent_coordinators`` rank-ordered racers
+    (Paxos.java:93-238). Returns the acceptor lanes, the ``[t]`` decided
+    flags and the winning cohorts (``[t]`` int32, -1 if none). Every value
+    stays defined for a tenant whose attempt is not due (no active member,
+    nothing announced), so a fleet can compute it for all and select."""
     cp_rnd_r, cp_rnd_i, cp_vrnd_r, cp_vrnd_i, cp_vval_src = cp
-    n, c = cfg.n, cfg.c
+    t, n = state.alive.shape
+    c = cfg.c
     dev = state.alive.device
-    cohort_of = state.cohort_of.to(torch.int64)
     active = state.alive & ~faults.crashed
-    n_active = active.sum(dtype=torch.int32)
+    n_active = active.sum(-1, dtype=torch.int32)
     majority = state.n_members // 2 + 1
-    round_num = 2 + state.classic_epoch
+    round_num = (2 + state.classic_epoch)[:, None]
     cohort_ids = torch.arange(c, dtype=torch.int32, device=dev)
-    active_rank = torch.cumsum(active, 0, dtype=torch.int32)
+    active_rank = torch.cumsum(active, -1, dtype=torch.int32)
 
     def rank_gt(ar, ai, br, bi):
         return (ar > br) | ((ar == br) & (ai > bi))
@@ -132,59 +171,65 @@ def _classic_attempt(cfg: EngineConfig, state: EngineState, faults: FaultInputs,
     for j in range(cfg.concurrent_coordinators):
         pick = _u32.mix32_w(_rotation_seed_w(epoch_w, j))
         target = torch.where(n_active > 0, pick % n_active.clamp(min=1).to(torch.int64) + 1, 1)
-        coords.append(torch.argmax((active & (active_rank == target)).to(torch.int32)))
+        coords.append(torch.argmax((active & (active_rank == target[:, None])).to(torch.int32), -1))
 
     valid = []
     for j, coord in enumerate(coords):
-        v = torch.ones((), dtype=torch.bool, device=dev)
+        v = torch.ones((t,), dtype=torch.bool, device=dev)
         for prev in coords[:j]:
             v = v & (coord != prev)
-        valid.append(v)
+        valid.append(v[:, None])
 
     per = []
     for coord, v in zip(coords, valid):
-        coord_cohort = cohort_of[coord]
-        hears_coord = active & v & ~faults.rx_block[cohort_of, coord]
-        coord_hears = active & v & ~faults.rx_block[coord_cohort]
-        promise = hears_coord & rank_gt(round_num, coord, cp_rnd_r, cp_rnd_i)
+        coord_cohort = _take(state.cohort_of, coord)  # [t]
+        # rx_block[cohort_of[i], coord] and rx_block[coord_cohort, i], per tenant.
+        coord_col = coord[:, None, None].expand(t, c, 1)
+        rx_from_coord = torch.gather(faults.rx_block, 2, coord_col)[:, :, 0]  # [t, c]
+        hears_coord = active & v & ~_take(rx_from_coord, state.cohort_of)
+        coord_row = coord_cohort.clamp(0, c - 1)[:, None, None].expand(t, 1, n)
+        coord_hears = active & v & ~torch.gather(faults.rx_block, 1, coord_row)[:, 0]
+        coord_i = coord[:, None]
+        promise = hears_coord & rank_gt(round_num, coord_i, cp_rnd_r, cp_rnd_i)
         q1 = promise & coord_hears
-        phase1_ok = q1.sum(dtype=torch.int32) >= majority
+        phase1_ok = q1.sum(-1, dtype=torch.int32) >= majority
         voters = q1 & (cp_vval_src >= 0)
-        mv_r = torch.where(voters, cp_vrnd_r, -1).max()
-        mv_i = torch.where(voters & (cp_vrnd_r == mv_r), cp_vrnd_i, -1).max()
+        mv_r = torch.where(voters, cp_vrnd_r, -1).amax(-1)[:, None]
+        mv_i = torch.where(voters & (cp_vrnd_r == mv_r), cp_vrnd_i, -1).amax(-1)[:, None]
         at_max = voters & (cp_vrnd_r == mv_r) & (cp_vrnd_i == mv_i)
-        max_counts = (at_max[None, :] & (cp_vval_src[None, :] == cohort_ids[:, None])).sum(
-            1, dtype=torch.int32
-        )
+        max_counts = (at_max[:, None, :] & (cp_vval_src[:, None, :] == cohort_ids[:, None])).sum(
+            -1, dtype=torch.int32
+        )  # [t, c]
         chosen = torch.where(
-            (max_counts > 0).any(),
-            torch.argmax(max_counts),
-            torch.where(announced.any(), torch.argmax(announced.to(torch.int32)), -1),
+            (max_counts > 0).any(-1),
+            torch.argmax(max_counts, -1),
+            torch.where(announced.any(-1), torch.argmax(announced.to(torch.int32), -1), -1),
         ).to(torch.int32)
-        per.append((coord, hears_coord, promise, phase1_ok, chosen))
+        per.append((coord_i, hears_coord, promise, phase1_ok, chosen))
 
     # An acceptor's rnd after every phase1a is the max rank it heard.
     rnd1_r, rnd1_i = cp_rnd_r, cp_rnd_i
-    for coord, _, promise, _, _ in per:
-        bump = promise & rank_gt(round_num, coord, rnd1_r, rnd1_i)
+    for coord_i, _, promise, _, _ in per:
+        bump = promise & rank_gt(round_num, coord_i, rnd1_r, rnd1_i)
         rnd1_r = torch.where(bump, round_num, rnd1_r)
-        rnd1_i = torch.where(bump, coord.to(torch.int32), rnd1_i)
+        rnd1_i = torch.where(bump, coord_i.to(torch.int32), rnd1_i)
 
     acc_r, acc_i, acc_src = cp_vrnd_r, cp_vrnd_i, cp_vval_src
-    fb_decided = torch.zeros((), dtype=torch.bool, device=dev)
-    chosen_winner = torch.full((), -1, dtype=torch.int32, device=dev)
-    any_touch = torch.zeros((n,), dtype=torch.bool, device=dev)
-    for coord, hears_coord, promise, phase1_ok, chosen in per:
+    fb_decided = torch.zeros((t,), dtype=torch.bool, device=dev)
+    chosen_winner = torch.full((t,), -1, dtype=torch.int32, device=dev)
+    any_touch = torch.zeros((t, n), dtype=torch.bool, device=dev)
+    for coord_i, hears_coord, promise, phase1_ok, chosen in per:
+        proposing = phase1_ok & (chosen >= 0)
         can_accept = (
-            phase1_ok & (chosen >= 0) & hears_coord & (rnd1_r == round_num) & (rnd1_i == coord)
+            proposing[:, None] & hears_coord & (rnd1_r == round_num) & (rnd1_i == coord_i)
         )
-        accept_count = can_accept.sum(dtype=torch.int32)
-        won = phase1_ok & (chosen >= 0) & (accept_count >= majority)
+        accept_count = can_accept.sum(-1, dtype=torch.int32)
+        won = proposing & (accept_count >= majority)
         fb_decided = fb_decided | won
         chosen_winner = torch.where(won, chosen, chosen_winner)
         acc_r = torch.where(can_accept, round_num, acc_r)
-        acc_i = torch.where(can_accept, coord.to(torch.int32), acc_i)
-        acc_src = torch.where(can_accept, chosen, acc_src)
+        acc_i = torch.where(can_accept, coord_i.to(torch.int32), acc_i)
+        acc_src = torch.where(can_accept, chosen[:, None], acc_src)
         any_touch = any_touch | promise | can_accept
 
     return (
@@ -199,12 +244,23 @@ def _classic_attempt(cfg: EngineConfig, state: EngineState, faults: FaultInputs,
 
 
 def _compute_round(
-    cfg: EngineConfig, state: EngineState, faults: FaultInputs, edge_masks=None
-) -> Tuple[EngineState, bool, torch.Tensor, StepEvents]:
-    """One protocol round WITHOUT the view change: returns the
-    round-advanced state, whether it decided (a host bool), the decided cut
-    and the round's events."""
-    n, c = cfg.n, cfg.c
+    cfg: EngineConfig,
+    state: EngineState,
+    faults: FaultInputs,
+    edge_masks=None,
+    select: bool = False,
+) -> Tuple[EngineState, object, torch.Tensor, StepEvents]:
+    """One protocol round for every tenant of ``[t, ...]`` lanes, WITHOUT
+    the view change: returns the round-advanced state, whether it decided,
+    the decided cuts ``[t, n]`` and the round's events (``[t]`` scalars).
+
+    ``select=False`` (the single cluster, ``t = 1``): the invalidation and
+    classic-attempt gates are host branches on counted reads, and
+    ``decided`` is a host bool. ``select=True`` (a fleet): both are
+    computed for every tenant (the attempt kept where it is due), no read
+    is made, and ``decided`` is the ``[t]`` bool tensor."""
+    c = cfg.c
+    t = state.alive.shape[0]
     dev = state.alive.device
     if edge_masks is None:
         edge_masks = _edge_masks(cfg, state, faults)
@@ -212,35 +268,38 @@ def _compute_round(
 
     # 1. Failure-detector tick.
     fd_count, fd_hist, fd_fired, fire = _fd_tick(cfg, state, faults, observer_active)
-    fire_round = torch.where(fire, state.round_idx, state.fire_round)
-    alerts_emitted = fire.sum(dtype=torch.int32)
+    fire_round = torch.where(fire, state.round_idx[:, None, None], state.fire_round)
+    alerts_emitted = fire.flatten(1).sum(-1, dtype=torch.int32)
 
     # 2. Delivery, zeroed once every fired alert has matured (the JAX
     #    version skips the work with lax.cond; the select gives the same
     #    bits, since matured alerts are already merged into report_bits).
-    last_mature = torch.where(fd_fired, fire_round, -1).max() + cfg.delivery_spread
-    need_delivery = fd_fired.any() & (state.round_idx <= last_mature)
+    last_mature = torch.where(fd_fired, fire_round, -1).flatten(1).amax(-1) + cfg.delivery_spread
+    need_delivery = fd_fired.flatten(1).any(-1) & (state.round_idx <= last_mature)
     delivered = _deliver_alerts(cfg, state, fire_round, blocked_rows)
-    new_bits = torch.where(need_delivery, delivered, 0)
-    heard_down = ((new_bits != 0) & state.alive[None, :]).any(1)
+    new_bits = torch.where(need_delivery[:, None, None], delivered, 0)
+    heard_down = ((new_bits != 0) & state.alive[:, None, :]).any(-1)
 
     # 3. Cut detection per cohort.
     report_bits, released, announced, seen_down, proposed_now, prop_masks = (
         cohort_watermark_pass(
             state.report_bits, new_bits, state.seen_down, state.released, state.announced,
             state.alive | state.join_pending, state.inval_obs, heard_down, cfg.h, cfg.l, cfg.k,
+            select=select,
         )
     )
-    prop_hi_new, prop_lo_new = masked_set_hash(state.id_hi, state.id_lo, prop_masks)
+    prop_hi_new, prop_lo_new = masked_set_hash(
+        state.id_hi[:, None, :], state.id_lo[:, None, :], prop_masks
+    )
     prop_hi = torch.where(proposed_now, prop_hi_new, state.prop_hi)
     prop_lo = torch.where(proposed_now, prop_lo_new, state.prop_lo)
-    prop_mask = torch.where(proposed_now[:, None], prop_masks, state.prop_mask)
+    prop_mask = torch.where(proposed_now[:, :, None], prop_masks, state.prop_mask)
 
     # 4. Fast-round votes, once per member per configuration.
-    cohort = state.cohort_of.to(torch.int64)
-    can_vote = state.alive & ~faults.crashed & ~state.vote_valid & announced[cohort]
-    vote_hi = torch.where(can_vote, prop_hi[cohort], state.vote_hi)
-    vote_lo = torch.where(can_vote, prop_lo[cohort], state.vote_lo)
+    cohort = state.cohort_of.clamp(0, c - 1).to(torch.int64)  # JAX clamps its gathers
+    can_vote = state.alive & ~faults.crashed & ~state.vote_valid & announced.gather(1, cohort)
+    vote_hi = torch.where(can_vote, prop_hi.gather(1, cohort), state.vote_hi)
+    vote_lo = torch.where(can_vote, prop_lo.gather(1, cohort), state.vote_lo)
     vote_valid = state.vote_valid | can_vote
 
     # 5. Quorum tally.
@@ -258,37 +317,48 @@ def _compute_round(
         torch.where(prime, 1, state.cp_vrnd_i),
         torch.where(prime, state.cohort_of, state.cp_vval_src),
     )
-    any_announced = announced.any()
-    stalled = any_announced & ~fast_decided
+    stalled = announced.any(-1) & ~fast_decided
     rounds_undecided = torch.where(stalled, state.rounds_undecided + 1, state.rounds_undecided)
     fallback_due = (rounds_undecided >= cfg.fallback_rounds) & stalled
 
-    # 5b. Classic fallback: a host branch (it is rare and costs a few
-    #     [c, n] passes).
-    fast_host, fallback_host = _host.read(torch.stack([fast_decided, fallback_due]))
-    if fallback_host:
-        *cp, fb_decided, chosen = _classic_attempt(cfg, state, faults, announced, cp)
-        decided_host = fast_host or _host.read(fb_decided)
-        classic_epoch = state.classic_epoch + 1
+    # 5b. Classic fallback: a host branch for the single cluster (it is rare
+    #     and costs a few [c, n] passes), a per-tenant select in a fleet.
+    if select:
+        *attempt, fb_decided, chosen = _classic_attempt(cfg, state, faults, announced, cp)
+        cp = tuple(torch.where(fallback_due[:, None], a, b) for a, b in zip(attempt, cp))
+        fb_decided = fallback_due & fb_decided
+        chosen = torch.where(fallback_due, chosen, -1)
     else:
-        fb_decided = torch.zeros((), dtype=torch.bool, device=dev)
-        chosen = torch.full((), -1, dtype=torch.int32, device=dev)
-        decided_host = fast_host
-        classic_epoch = state.classic_epoch
+        fast_host, fallback_host = _host.read(torch.stack([fast_decided, fallback_due]).view(-1))
+        if fallback_host:
+            *cp, fb_decided, chosen = _classic_attempt(cfg, state, faults, announced, cp)
+        else:
+            fb_decided = torch.zeros((t,), dtype=torch.bool, device=dev)
+            chosen = torch.full((t,), -1, dtype=torch.int32, device=dev)
+    classic_epoch = torch.where(fallback_due, state.classic_epoch + 1, state.classic_epoch)
     cp_rnd_r, cp_rnd_i, cp_vrnd_r, cp_vrnd_i, cp_vval_src = cp
 
     decided = fast_decided | fb_decided
+    if select:
+        decided_out = decided
+    else:
+        decided_out = fast_host or (fallback_host and _host.read(fb_decided.view(-1))[0])
     winner_cohort = torch.where(
         fast_decided,
         torch.argmax(
-            (announced & (prop_hi == tally.winner_hi) & (prop_lo == tally.winner_lo)).to(
-                torch.int32
-            )
+            (
+                announced
+                & (prop_hi == tally.winner_hi[:, None])
+                & (prop_lo == tally.winner_lo[:, None])
+            ).to(torch.int32),
+            -1,
         ),
         chosen.clamp(min=0),
     )
     cohort_ids = torch.arange(c, dtype=torch.int64, device=dev)
-    winner_mask = decided & (prop_mask & (cohort_ids == winner_cohort)[:, None]).any(0)
+    winner_mask = decided[:, None] & (
+        prop_mask & (cohort_ids == winner_cohort[:, None])[:, :, None]
+    ).any(1)
 
     round_state = state._replace(
         fd_count=fd_count,
@@ -325,34 +395,36 @@ def _compute_round(
         prop_hi=prop_hi,
         prop_lo=prop_lo,
     )
-    return round_state, decided_host, winner_mask, events
+    return round_state, decided_out, winner_mask, events
 
 
 def apply_view_change_impl(cfg: EngineConfig, state: EngineState, winner_mask) -> EngineState:
-    """Commit a decided cut: flip membership, re-derive ring topology, reset
-    the per-configuration state. Joiners not in the cut stay pending with
-    their fired UP edges re-stamped to round 0."""
+    """Commit each tenant's decided cut (``winner_mask [t, n]``): flip
+    membership, re-derive ring topology, reset the per-configuration
+    state. Joiners not in the cut stay pending with their fired UP edges
+    re-stamped to round 0."""
     n, k, c = cfg.n, cfg.k, cfg.c
+    t = state.alive.shape[0]
     dev = state.alive.device
     alive2 = state.alive ^ winner_mask
     topo = ring_topology_from_perm(state.ring_perm, alive2)
     config_hi, config_lo = masked_set_hash(state.id_hi, state.id_lo, alive2)
     still_pending = state.join_pending & ~winner_mask
-    fd_fired2 = state.fd_fired & still_pending[:, None]
+    fd_fired2 = state.fd_fired & still_pending[:, :, None]
 
     def zeros(shape, dtype=torch.int32):
-        return torch.zeros(shape, dtype=dtype, device=dev)
+        return torch.zeros((t,) + shape, dtype=dtype, device=dev)
 
     return state._replace(
         alive=alive2,
         retired=state.retired | (winner_mask & state.alive),
-        obs_idx=torch.where(still_pending[None, :], state.obs_idx, topo.obs_idx),
+        obs_idx=torch.where(still_pending[:, None, :], state.obs_idx, topo.obs_idx),
         subj_idx=topo.subj_idx,
-        inval_obs=torch.where(still_pending[None, :], state.inval_obs, topo.obs_idx),
+        inval_obs=torch.where(still_pending[:, None, :], state.inval_obs, topo.obs_idx),
         config_epoch=state.config_epoch + 1,
         config_hi=config_hi,
         config_lo=config_lo,
-        n_members=alive2.sum(dtype=torch.int32),
+        n_members=alive2.sum(-1, dtype=torch.int32),
         fd_count=zeros((n, k)),
         fd_hist=zeros((n, k)),
         fd_fired=fd_fired2,
@@ -373,7 +445,7 @@ def apply_view_change_impl(cfg: EngineConfig, state: EngineState, winner_mask) -
         cp_rnd_i=zeros((n,)),
         cp_vrnd_r=zeros((n,)),
         cp_vrnd_i=zeros((n,)),
-        cp_vval_src=torch.full((n,), -1, dtype=torch.int32, device=dev),
+        cp_vval_src=torch.full((t, n), -1, dtype=torch.int32, device=dev),
         classic_epoch=zeros(()),
         round_idx=zeros(()),
     )
@@ -382,26 +454,27 @@ def apply_view_change_impl(cfg: EngineConfig, state: EngineState, winner_mask) -
 def engine_step(
     cfg: EngineConfig, state: EngineState, faults: FaultInputs
 ) -> Tuple[EngineState, StepEvents, bool]:
-    """One full round including the view change when it decided. Returns
-    (state, events, decided)."""
-    round_state, decided, winner_mask, events = _compute_round(cfg, state, faults)
+    """One cluster's full round including the view change when it decided.
+    Returns (state, events, decided)."""
+    round_state, decided, winner_mask, events = _compute_round(cfg, _one(state), _one(faults))
     if decided:
         round_state = apply_view_change_impl(cfg, round_state, winner_mask)
-    return round_state, events, decided
+    return _only(round_state), _only(events), decided
 
 
 def run_to_decision(cfg: EngineConfig, state: EngineState, faults: FaultInputs, max_steps: int):
-    """Rounds until a view change commits or ``max_steps`` run out. Returns
-    (state, steps, decided, winner_mask)."""
+    """One cluster's rounds until a view change commits or ``max_steps`` run
+    out. Returns (state, steps, decided, winner_mask)."""
+    state, faults = _one(state), _one(faults)
     edge_masks = _edge_masks(cfg, state, faults)
     steps, decided = 0, False
-    winner = torch.zeros((cfg.n,), dtype=torch.bool, device=state.alive.device)
+    winner = torch.zeros((1, cfg.n), dtype=torch.bool, device=state.alive.device)
     while not decided and steps < max_steps:
         state, decided, winner, _ = _compute_round(cfg, state, faults, edge_masks)
         steps += 1
     if decided:
         state = apply_view_change_impl(cfg, state, winner)
-    return state, steps, decided, winner
+    return _only(state), steps, decided, winner[0]
 
 
 def run_until_membership(
@@ -413,13 +486,14 @@ def run_until_membership(
     max_cuts: int,
     min_cuts: int,
 ):
-    """Rounds through several view changes until the membership reaches
-    ``target`` with at least ``min_cuts`` committed cuts, the step or cut
-    budget runs out, or a convergence stalls undecided. Returns (state,
-    total_steps, cuts, resolved, sizes) where ``sizes[i]`` is the
-    membership after the i-th cut."""
+    """One cluster's rounds through several view changes until the
+    membership reaches ``target`` with at least ``min_cuts`` committed
+    cuts, the step or cut budget runs out, or a convergence stalls
+    undecided. Returns (state, total_steps, cuts, resolved, sizes) where
+    ``sizes[i]`` is the membership after the i-th cut."""
+    state, faults = _one(state), _one(faults)
     edge_masks = _edge_masks(cfg, state, faults)
-    members = _host.read(state.n_members)
+    members = _host.read(state.n_members)[0]
     steps, cuts, stalled, sizes = 0, 0, False, []
     while not (
         (members == target and cuts >= min_cuts)
@@ -434,12 +508,12 @@ def run_until_membership(
         if decided:
             state = apply_view_change_impl(cfg, state, winner)
             edge_masks = _edge_masks(cfg, state, faults)
-            members = _host.read(state.n_members)
+            members = _host.read(state.n_members)[0]
             sizes.append(members)
             cuts += 1
         stalled = not decided
     resolved = members == target and cuts >= min_cuts
-    return state, steps, cuts, resolved, sizes
+    return _only(state), steps, cuts, resolved, sizes
 
 
 class VirtualCluster:

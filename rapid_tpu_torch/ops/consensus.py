@@ -20,11 +20,11 @@ def fast_paxos_quorum(n):
 
 
 class TallyResult(NamedTuple):
-    decided: torch.Tensor  # 0-d bool
-    winner_hi: torch.Tensor  # 0-d stored uint32 (0 when undecided)
+    decided: torch.Tensor  # bool, one per batch (0-d for one cluster)
+    winner_hi: torch.Tensor  # stored uint32 (0 when undecided)
     winner_lo: torch.Tensor
-    max_count: torch.Tensor  # 0-d int32 votes for the best proposal
-    total_votes: torch.Tensor  # 0-d int32 valid votes seen
+    max_count: torch.Tensor  # int32 votes for the best proposal
+    total_votes: torch.Tensor  # int32 valid votes seen
 
 
 def tally_candidates(
@@ -36,31 +36,33 @@ def tally_candidates(
     cand_valid: torch.Tensor,
     n_members: torch.Tensor,
 ) -> TallyResult:
-    """Count identical votes (``[N]`` stored uint32 lanes + validity)
-    against C candidate proposals (``[C]``). The winner is the lowest-index
-    candidate among those with the most votes, selected as a one-hot mask:
-    the same tie-break as ``argmax``."""
-    c = cand_hi.shape[0]
+    """Count identical votes (``[..., N]`` stored uint32 lanes + validity)
+    against C candidate proposals (``[..., C]``), with ``n_members`` over
+    the leading batch axes (a fleet's ``[t]``: every tenant takes its own
+    quorum). The winner is the lowest-index candidate among those with the
+    most votes, selected as a one-hot mask: the same tie-break as
+    ``argmax``."""
+    c = cand_hi.shape[-1]
     matches = (
-        vote_valid[None, :]
-        & cand_valid[:, None]
-        & (vote_hi[None, :] == cand_hi[:, None])
-        & (vote_lo[None, :] == cand_lo[:, None])
+        vote_valid[..., None, :]
+        & cand_valid[..., :, None]
+        & (vote_hi[..., None, :] == cand_hi[..., :, None])
+        & (vote_lo[..., None, :] == cand_lo[..., :, None])
     )
-    counts = matches.sum(1, dtype=torch.int32)
-    total = vote_valid.sum(dtype=torch.int32)
-    max_count = counts.max()
+    counts = matches.sum(-1, dtype=torch.int32)
+    total = vote_valid.sum(-1, dtype=torch.int32)
+    max_count = counts.amax(-1)
     cand_ids = torch.arange(c, dtype=torch.int32, device=counts.device)
-    best = torch.where(counts == max_count, cand_ids, c).min()
-    sel = cand_ids == best
+    best = torch.where(counts == max_count[..., None], cand_ids, c).amin(-1)
+    sel = cand_ids == best[..., None]
     quorum = fast_paxos_quorum(n_members)
     decided = (total >= quorum) & (max_count >= quorum)
     # max over uint32 values: widen, since the stored int32 order is signed.
-    pick = decided & sel
+    pick = decided[..., None] & sel
     return TallyResult(
         decided=decided,
-        winner_hi=_u32.narrow(torch.where(pick, _u32.widen(cand_hi), 0).max()),
-        winner_lo=_u32.narrow(torch.where(pick, _u32.widen(cand_lo), 0).max()),
+        winner_hi=_u32.narrow(torch.where(pick, _u32.widen(cand_hi), 0).amax(-1)),
+        winner_lo=_u32.narrow(torch.where(pick, _u32.widen(cand_lo), 0).amax(-1)),
         max_count=max_count,
         total_votes=total,
     )

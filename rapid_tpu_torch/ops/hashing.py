@@ -34,9 +34,10 @@ def mix32(x: torch.Tensor) -> torch.Tensor:
 
 def masked_set_hash(hi: torch.Tensor, lo: torch.Tensor, mask: torch.Tensor) -> tuple:
     """Order-independent 64-bit identity of the set of members selected by
-    ``mask`` (reduced over the last axis; ``mask`` may carry leading batch
-    axes, e.g. ``[c, n]`` for one hash per cohort). Sums wrap mod 2**32.
-    Returns stored uint32 (hi, lo)."""
+    ``mask`` (reduced over the last axis). ``mask`` may carry leading batch
+    axes, e.g. ``[c, n]`` for one hash per cohort, and the identity lanes
+    broadcast against it: a fleet passes ``[t, 1, n]`` ids with ``[t, c,
+    n]`` masks. Sums wrap mod 2**32. Returns stored uint32 (hi, lo)."""
     m = mask.to(torch.int64)
     mixed_hi = _u32.mix32_w(_u32.widen(hi) ^ 0x9E3779B9)
     mixed_lo = _u32.mix32_w(_u32.widen(lo) ^ 0x85EBCA77)

@@ -7,8 +7,12 @@
 - :func:`delivery_new_bits`: the alert-delivery kernel, CUDA C++ for
   Hopper in ``csrc/delivery.cu`` (it replaces the Pallas kernel
   ``delivery_new_bits_pallas``), with its plain version
-  :func:`delivery_new_bits_ref`. The wrapper takes the plain version only
-  for tensors on the CPU; for CUDA tensors it launches the kernel or raises.
+  :func:`delivery_new_bits_ref`. Both take one cluster or a fleet (a
+  leading tenant axis). The wrapper takes the plain version only for
+  tensors on the CPU; for CUDA tensors it launches the kernel or raises.
+
+Every op of the engine takes optional leading batch axes (the fleet's
+tenant axis); :func:`per_batch` lines a per-tenant value up against them.
 """
 
 from __future__ import annotations
@@ -30,37 +34,60 @@ def popcount32(v: torch.Tensor) -> torch.Tensor:
     return (((v * 0x01010101) >> 24) & 0xFF).to(torch.int32)
 
 
+def per_batch(x, like: torch.Tensor):
+    """``x`` shaped to broadcast against ``like``: a Python int (one
+    cluster's knob) as it is, a tensor over the leading batch axes of
+    ``like`` (a fleet's ``[t]`` knob or lane) with ones appended."""
+    if not isinstance(x, torch.Tensor):
+        return x
+    return x.reshape(x.shape + (1,) * (like.dim() - x.dim()))
+
+
 def watermark_merge_classify(old_bits, new_bits, subject_mask, h, l):
     """OR-merge ring-report bitmasks (stored uint32), clear non-subjects,
     and classify each slot's tally: 0 none, 1 flux ``[l, h)``, 2 stable
-    ``>= h``. Returns (merged bits, int32 class)."""
+    ``>= h``. ``h`` and ``l`` are ints or per-batch tensors (see
+    :func:`per_batch`). Returns (merged bits, int32 class)."""
     merged = torch.where(subject_mask, old_bits | new_bits, 0)
     tally = popcount32(merged)
+    h, l = per_batch(h, tally), per_batch(l, tally)
     stable = tally >= h
     flux = (tally >= l) & (tally < h)
     cls = torch.where(stable, 2, torch.where(flux, 1, 0)).to(torch.int32)
     return merged, cls
 
 
+
+
 def delivery_new_bits_ref(blocked_rows, age_kn, epoch, k: int, c: int, spread: int, permille: int):
     """The plain PyTorch delivery pass (the JAX engine's jnp path,
-    ``virtual_cluster._deliver_alerts``), ``[c, n]`` stored uint32.
+    ``virtual_cluster._deliver_alerts``), stored uint32.
 
-    blocked_rows: ``[w*k, n]`` stored uint32, row ``wi*k + ring``, bit j =
-    cohort ``32*wi + j`` cannot hear the edge's observer. age_kn: ``[k, n]``
-    int32 rounds since each edge fired (negative = not fired). epoch: 0-d or
-    ``[1]`` int32, the configuration epoch salting the delay draws."""
-    n = age_kn.shape[-1]
+    One cluster: blocked_rows ``[w*k, n]`` stored uint32, row ``wi*k +
+    ring``, bit j = cohort ``32*wi + j`` cannot hear the edge's observer;
+    age_kn ``[k, n]`` int32 rounds since each edge fired (negative = not
+    fired); epoch one int32 (0-d or ``[1]``), the configuration epoch
+    salting the delay draws. Returns ``[c, n]``.
+
+    A fleet: the same with a leading tenant axis, blocked_rows ``[t, w*k,
+    n]``, age_kn ``[t, k, n]`` and epoch ``[t]`` (each tenant's own epoch).
+    Returns ``[t, c, n]``; tenant i equals the one-cluster call on its
+    slices."""
+    if age_kn.dim() == 2:
+        return delivery_new_bits_ref(
+            blocked_rows[None], age_kn[None], epoch.reshape(1), k, c, spread, permille
+        )[0]
+    t, _, n = age_kn.shape
     dev = age_kn.device
     c_ids = torch.arange(c, dtype=torch.int64, device=dev)
     word_idx = c_ids // 32
     bit_idx = c_ids % 32
     slot_salt = _u32.mul(torch.arange(n, dtype=torch.int64, device=dev), 0x85EBCA77)
-    epoch_salt = _u32.mul(_u32.widen(epoch.reshape(())), 0x27D4EB2F)
-    base = _u32.mul(c_ids, 0x9E3779B1)[:, None] ^ slot_salt[None, :] ^ epoch_salt
-    new_bits = torch.zeros((c, n), dtype=torch.int64, device=dev)
+    epoch_salt = _u32.mul(_u32.widen(epoch.reshape(t)), 0x27D4EB2F)
+    base = (_u32.mul(c_ids, 0x9E3779B1)[:, None] ^ slot_salt[None, :]) ^ epoch_salt[:, None, None]
+    new_bits = torch.zeros((t, c, n), dtype=torch.int64, device=dev)
     for ring in range(k):
-        words = _u32.widen(blocked_rows[word_idx * k + ring, :])  # [c, n]
+        words = _u32.widen(blocked_rows[:, word_idx * k + ring, :])  # [t, c, n]
         blocked = (words >> bit_idx[:, None]) & 1
         if spread > 0:
             rnd = _u32.mix32_w(base ^ ((ring * 0xC2B2AE3D) & _u32.MASK))
@@ -71,9 +98,13 @@ def delivery_new_bits_ref(blocked_rows, age_kn, epoch, k: int, c: int, spread: i
                 delay = torch.where(gate, 1 + rnd % spread, 0)
         else:
             delay = 0
-        delivered = (age_kn[ring][None, :] >= delay) & (blocked == 0)
+        delivered = (age_kn[:, ring, None, :] >= delay) & (blocked == 0)
         new_bits |= delivered.to(torch.int64) << ring
     return _u32.narrow(new_bits)
+
+
+#: Most tenants one kernel call takes (they ride ``gridDim.z``).
+MAX_TENANTS = 65535
 
 
 def _check_delivery_args(blocked_rows, age_kn, epoch, k, c, spread, permille):
@@ -93,39 +124,49 @@ def _check_delivery_args(blocked_rows, age_kn, epoch, k, c, spread, permille):
     if not 1 <= k <= 32 or not 1 <= c <= 1024 or spread < 0 or not 0 <= permille <= 1000:
         raise ValueError(f"bad delivery parameters k={k} c={c} spread={spread} permille={permille}")
     w = (c + 31) // 32
-    if age_kn.dim() != 2 or age_kn.shape[0] != k:
-        raise ValueError(f"age_kn must be [k={k}, n], got {tuple(age_kn.shape)}")
-    n = age_kn.shape[1]
-    if tuple(blocked_rows.shape) != (w * k, n):
-        raise ValueError(f"blocked_rows must be [{w * k}, {n}], got {tuple(blocked_rows.shape)}")
-    if epoch.numel() != 1:
+    if age_kn.dim() not in (2, 3) or age_kn.shape[-2] != k:
+        raise ValueError(f"age_kn must be [k={k}, n] or [t, k={k}, n], got {tuple(age_kn.shape)}")
+    batch, n = tuple(age_kn.shape[:-2]), age_kn.shape[-1]
+    if tuple(blocked_rows.shape) != batch + (w * k, n):
+        raise ValueError(
+            f"blocked_rows must be {list(batch + (w * k, n))}, got {tuple(blocked_rows.shape)}"
+        )
+    if batch:
+        if not 1 <= batch[0] <= MAX_TENANTS:
+            raise ValueError(f"tenant count must be in [1, {MAX_TENANTS}], got {batch[0]}")
+        if tuple(epoch.shape) != batch:
+            raise ValueError(f"epoch must be [t={batch[0]}], one per tenant, got {tuple(epoch.shape)}")
+    elif epoch.numel() != 1:
         raise ValueError(f"epoch must hold one value, got shape {tuple(epoch.shape)}")
     return devices.pop()
 
 
 def _delivery_fn():
     fn = _build.load("delivery").rapid_delivery_new_bits
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def delivery_new_bits(blocked_rows, age_kn, epoch, k: int, c: int, spread: int, permille: int):
-    """Per-cohort delivered alert bitmasks ``[c, n]`` (stored uint32): the
-    CUDA kernel ``csrc/delivery.cu`` on CUDA tensors, the plain version on
-    CPU tensors. Arguments as :func:`delivery_new_bits_ref`."""
+    """Per-cohort delivered alert bitmasks, ``[c, n]`` for one cluster or
+    ``[t, c, n]`` for a fleet (stored uint32): the CUDA kernel
+    ``csrc/delivery.cu`` on CUDA tensors, one launch per call whatever
+    ``t``; the plain version on CPU tensors. Arguments as
+    :func:`delivery_new_bits_ref`."""
     device = _check_delivery_args(blocked_rows, age_kn, epoch, k, c, spread, permille)
     if device.type == "cpu":
         return delivery_new_bits_ref(blocked_rows, age_kn, epoch, k, c, spread, permille)
     if device.type != "cuda":
         raise ValueError(f"delivery_new_bits runs on cuda or cpu tensors, got {device}")
-    n = age_kn.shape[1]
-    out = torch.empty((c, n), dtype=torch.int32, device=device)
+    t = age_kn.shape[0] if age_kn.dim() == 3 else 1
+    n = age_kn.shape[-1]
+    out = torch.empty(age_kn.shape[:-2] + (c, n), dtype=torch.int32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = _delivery_fn()(
             blocked_rows.data_ptr(), age_kn.data_ptr(), epoch.data_ptr(), out.data_ptr(),
-            n, k, c, spread, permille, stream,
+            t, n, k, c, spread, permille, stream,
         )
     if err != 0:
         raise RuntimeError(f"delivery kernel launch failed: cudaError {err}")

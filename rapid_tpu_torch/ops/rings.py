@@ -3,8 +3,9 @@
 Every slot carries K static 64-bit ring keys as stored uint32 (hi, lo)
 lanes. The key order of each ring is sorted ONCE (:func:`ring_perms`);
 every topology after that is O(N) scans over those permutations
-(:func:`ring_topology_from_perm`). Index tables are int32 like the JAX wide
-layout; gathers index with int64 copies of them.
+(:func:`ring_topology_from_perm`, which also takes a fleet's ``[t, K, N]``
+permutations and ``[t, N]`` masks). Index tables are int32 like the JAX
+wide layout; gathers index with int64 copies of them.
 """
 
 from __future__ import annotations
@@ -40,10 +41,16 @@ def ring_perms(key_hi: torch.Tensor, key_lo: torch.Tensor) -> torch.Tensor:
     return lex_argsort((_u32.widen(key_hi), _u32.widen(key_lo))).to(torch.int32)
 
 
+def _alive_at(alive: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+    """``alive[perm]`` per batch: the ``[..., N]`` mask read at every
+    position of the ``[..., K, N]`` int64 permutations."""
+    return torch.gather(alive.unsqueeze(-2).expand(perm.shape), -1, perm)
+
+
 def _alive_first_order(perm: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
-    """Stable partition of each ring's key order into alive-first, ``[K, N]``
-    int64, via rank scans and one scatter (no sort)."""
-    ao = alive[perm]
+    """Stable partition of each ring's key order into alive-first, ``[...,
+    K, N]`` int64, via rank scans and one scatter (no sort)."""
+    ao = _alive_at(alive, perm)
     n_alive = ao.sum(-1, keepdim=True)
     alive_rank = torch.cumsum(ao, -1) - 1
     dead_rank = n_alive + torch.cumsum(~ao, -1) - 1
@@ -56,24 +63,26 @@ def ring_topology_from_perm(perm: torch.Tensor, alive: torch.Tensor) -> RingTopo
     mask, sort-free. Successor among alive = next alive position in the
     circular key order (suffix min, done as flip + cummin + flip), and
     predecessor = previous alive position (prefix max). Returns int32
-    tables."""
+    tables. Leading batch axes (a fleet's tenants) ride along:
+    ``perm [..., K, N]`` with ``alive [..., N]``."""
     perm = perm.to(torch.int64)
-    k, n = perm.shape
+    n = perm.shape[-1]
+    edge = perm.shape[:-1] + (1,)
     dev = perm.device
-    ao = alive[perm]  # [K, N]
-    pos = torch.arange(n, dtype=torch.int64, device=dev).expand(k, n)
+    ao = _alive_at(alive, perm)  # [..., K, N]
+    pos = torch.arange(n, dtype=torch.int64, device=dev).expand(perm.shape)
     n_alive = ao.sum(-1, keepdim=True)
 
     idx_succ = torch.where(ao, pos, n)
     suffix_min = torch.flip(torch.cummin(torch.flip(idx_succ, [-1]), -1).values, [-1])
-    first_alive = suffix_min[:, :1]
-    nxt = torch.cat([suffix_min[:, 1:], torch.full((k, 1), n, device=dev)], -1)
+    first_alive = suffix_min[..., :1]
+    nxt = torch.cat([suffix_min[..., 1:], torch.full(edge, n, device=dev)], -1)
     succ_pos = torch.where(nxt >= n, first_alive, nxt)
 
     idx_pred = torch.where(ao, pos, -1)
     prefix_max = torch.cummax(idx_pred, -1).values
-    last_alive = prefix_max[:, -1:]
-    prv = torch.cat([torch.full((k, 1), -1, device=dev), prefix_max[:, :-1]], -1)
+    last_alive = prefix_max[..., -1:]
+    prv = torch.cat([torch.full(edge, -1, device=dev), prefix_max[..., :-1]], -1)
     pred_pos = torch.where(prv < 0, last_alive, prv)
 
     valid = ao & (n_alive >= 2)
@@ -112,7 +121,7 @@ def predecessor_of_keys(
     n = perm.shape[-1]
     sorted_keys = _key64(key_hi, key_lo).gather(-1, perm)
     pos = torch.searchsorted(sorted_keys, _key64(query_hi, query_lo).contiguous())
-    ao = alive[perm]
+    ao = _alive_at(alive, perm)
     alive_before = torch.cat(
         [torch.zeros_like(ao[:, :1], dtype=torch.int64), torch.cumsum(ao, -1)], -1
     )

@@ -1,8 +1,9 @@
 """The PyTorch port on a CUDA card.
 
 The delivery kernel (``rapid_tpu_torch/csrc/delivery.cu``) against its plain
-PyTorch version, bit for bit, and the whole engine on the card against the
-engine on the CPU, lane by lane. Every test needs a CUDA card and ``nvcc``
+PyTorch version, bit for bit, for one cluster and with a tenant axis, and
+the whole engine and a tenant fleet on the card against the same on the
+CPU, lane by lane. Every test needs a CUDA card and ``nvcc``
 and skips without them. On a GPU machine, from the root of a checkout
 (``--noconftest`` because the suite's conftest configures JAX, which the
 port does not need)::
@@ -14,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import churn_cluster, delivery_inputs, resolve
+from chip_smoke import churn_cluster, delivery_inputs, fleet_clusters, resolve
 from rapid_tpu_torch import _u32
 from rapid_tpu_torch.convert import state_to_numpy
 from rapid_tpu_torch.ops.kernels import delivery_new_bits, delivery_new_bits_ref
@@ -46,6 +47,25 @@ def test_delivery_kernel_matches_plain_version(card, c, n, spread, permille):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("t,c,n,spread,permille", [
+    (256, 8, 1044, 2, 1000),  # the fleet shape, the fleet path's mode
+    (256, 8, 1044, 0, 1000),
+    (256, 8, 1044, 3, 300),
+    (3, 40, 77, 2, 1000),     # ragged: two cohort words, less than a block
+    (1, 64, 129, 1, 1000),    # a fleet of one
+])
+def test_batched_delivery_kernel_matches_plain_version(card, t, c, n, spread, permille):
+    k = 10
+    args = (*delivery_inputs(c, k, n, t + spread, card, t=t), k, c, spread, permille)
+    before = delivery_new_bits.launches
+    got = delivery_new_bits(*args)
+    want = delivery_new_bits_ref(*args)
+    assert delivery_new_bits.launches == before + 1  # one launch for every tenant
+    assert got.shape == (t, c, n) and got.device == card
+    np.testing.assert_array_equal(_u32.to_numpy(got), _u32.to_numpy(want))
+
+
+@pytest.mark.cuda
 def test_delivery_wrapper_raises_on_inputs_split_across_devices(card):
     blocked, age, epoch = delivery_inputs(5, 3, 64, 1, card)
     with pytest.raises(ValueError, match="different devices"):
@@ -66,5 +86,26 @@ def test_engine_on_card_matches_cpu_lane_by_lane(card):
         lanes[device.type] = state_to_numpy(vc.state)
     assert results["cuda"] == results["cpu"]
     assert results["cuda"][2], results
+    for field, want in lanes["cpu"].items():
+        np.testing.assert_array_equal(lanes["cuda"][field], want, err_msg=field)
+
+
+@pytest.mark.cuda
+def test_fleet_on_card_matches_cpu_lane_by_lane(card):
+    # chip_smoke.py's fleet recipe at 6 tenants of N=128 with C=40.
+    from rapid_tpu_torch.tenancy import TenantFleet
+
+    lanes, results = {}, {}
+    for device in (card, torch.device("cpu")):
+        clusters, targets = fleet_clusters(6, 128, 4, 40, 11, device, ((9, 4), (8, 3), (7, 2)))
+        fleet = TenantFleet.from_clusters(clusters)
+        launches = delivery_new_bits.launches
+        got = fleet.run_until_membership(targets, max_steps=48, max_cuts=4, min_cuts=1)
+        if device.type == "cuda":
+            assert delivery_new_bits.launches == launches + 48
+        results[device.type] = [r.tolist() for r in got]
+        lanes[device.type] = state_to_numpy(fleet.state)
+    assert results["cuda"] == results["cpu"]
+    assert all(results["cuda"][2]), results
     for field, want in lanes["cpu"].items():
         np.testing.assert_array_equal(lanes["cuda"][field], want, err_msg=field)

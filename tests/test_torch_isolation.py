@@ -36,7 +36,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_rapid_tpu():
     out = subprocess.run(
         [sys.executable, "-c", _PROBE], cwd=REPO, capture_output=True, text=True, check=True,
     ).stdout.split(maxsplit=1)
-    assert int(out[0]) >= 12  # every module of the port was imported
+    assert int(out[0]) >= 17  # every module of the port, tenancy included, was imported
     assert out[1].strip() == "[]", f"the port loaded: {out[1]}"
 
 
@@ -53,6 +53,27 @@ def test_delivery_wrapper_takes_the_plain_version_only_on_cpu_tensors():
     out = delivery_new_bits(*_args(), 3, 5, 0, 1000)
     assert out.shape == (5, 64) and bool((out == 7).all())  # age 0, nothing blocked
     assert delivery_new_bits.launches == before
+
+
+def test_delivery_wrapper_takes_a_tenant_axis_on_cpu_tensors():
+    blocked, age = (x.expand(4, *x.shape).contiguous() for x in _args()[:2])
+    before = delivery_new_bits.launches
+    out = delivery_new_bits(blocked, age, torch.arange(4, dtype=torch.int32), 3, 5, 0, 1000)
+    assert out.shape == (4, 5, 64) and bool((out == 7).all())
+    assert delivery_new_bits.launches == before
+
+
+@pytest.mark.parametrize("fault", ["tenant_count", "tenant_epochs", "four_axes"])
+def test_delivery_wrapper_raises_on_a_mismatched_tenant_axis(fault):
+    blocked, age, _ = _args()
+    tenants = {"tenant_count": (2, 3, 3), "tenant_epochs": (3, 3, 2), "four_axes": (3, 3, 3)}[fault]
+    blocked = blocked.expand(tenants[0], *blocked.shape).contiguous()
+    age = age.expand(tenants[1], *age.shape).contiguous()
+    epoch = torch.zeros((tenants[2],), dtype=torch.int32)
+    if fault == "four_axes":
+        blocked, age = blocked[None], age[None]
+    with pytest.raises(ValueError):
+        delivery_new_bits(blocked, age, epoch, 3, 5, 0, 1000)
 
 
 @pytest.mark.parametrize("fault", ["mixed_devices", "meta_device", "dtype", "noncontiguous", "shape"])

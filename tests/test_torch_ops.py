@@ -267,3 +267,142 @@ def test_delivery_plain_version_matches_jnp_path_and_pallas(c, spread, permille)
     same_u32(got, want)
     same_u32(got, pallas)
     assert tk.delivery_new_bits.launches == 0  # CPU tensors take the plain version
+
+
+# -- A leading tenant axis (the fleet): every op, batched, equals the JAX op
+#    run tenant by tenant.
+
+T = 3
+
+
+def test_masked_set_hash_over_tenants_matches_jax():
+    rng = np.random.default_rng(21)
+    c, n = 4, 300
+    hi, lo = rand_u32(rng, (T, n)), rand_u32(rng, (T, n))
+    masks = rng.random((T, c, n)) < 0.4
+    got = thash.masked_set_hash(u32(hi)[:, None], u32(lo)[:, None], torch.from_numpy(masks))
+    alive = masks[:, 0]
+    got_config = thash.masked_set_hash(u32(hi), u32(lo), torch.from_numpy(alive))
+    for t in range(T):
+        for ci in range(c):
+            want = jhash.masked_set_hash(jnp.asarray(hi[t]), jnp.asarray(lo[t]), jnp.asarray(masks[t, ci]))
+            same_u32(got[0][t, ci], want[0])
+            same_u32(got[1][t, ci], want[1])
+        want = jhash.masked_set_hash(jnp.asarray(hi[t]), jnp.asarray(lo[t]), jnp.asarray(alive[t]))
+        same_u32(got_config[0][t], want[0])
+        same_u32(got_config[1][t], want[1])
+
+
+def test_ring_topology_over_tenants_matches_jax(ring_case):
+    key_hi, key_lo, alive, _, _ = ring_case
+    perm = trings.ring_perms(u32(key_hi), u32(key_lo))
+    jperm = jrings.ring_perms(jnp.asarray(key_hi), jnp.asarray(key_lo))
+    masks = np.stack([alive, np.eye(1, len(alive), 9, dtype=bool)[0], ~alive])
+    got = trings.ring_topology_from_perm(perm.expand(T, *perm.shape), torch.from_numpy(masks))
+    for t in range(T):
+        want = jrings.ring_topology_from_perm(jperm, jnp.asarray(masks[t]))
+        same(got.obs_idx[t], want.obs_idx)
+        same(got.subj_idx[t], want.subj_idx)
+        same(got.order[t], want.order)
+
+
+def test_tally_candidates_over_tenants_takes_each_tenants_quorum():
+    rng = np.random.default_rng(22)
+    n, c = 200, 6
+    cand_hi, cand_lo = rand_u32(rng, (T, c)), rand_u32(rng, (T, c))
+    cand_valid = rng.random((T, c)) < 0.8
+    cand_valid[:, 3] = True
+    pick = np.where(rng.random((T, n)) < 0.85, 3, rng.integers(0, c, size=(T, n)))
+    vote_hi = np.take_along_axis(cand_hi, pick, 1)
+    vote_lo = np.take_along_axis(cand_lo, pick, 1)
+    vote_valid = rng.random((T, n)) < 0.97
+    members = np.array([n, n // 2, 2 * n], dtype=np.int32)  # decided, decided, short of quorum
+    got = tcons.tally_candidates(
+        u32(vote_hi), u32(vote_lo), torch.from_numpy(vote_valid), u32(cand_hi), u32(cand_lo),
+        torch.from_numpy(cand_valid), torch.from_numpy(members),
+    )
+    for t in range(T):
+        want = jcons.tally_candidates(
+            jnp.asarray(vote_hi[t]), jnp.asarray(vote_lo[t]), jnp.asarray(vote_valid[t]),
+            jnp.asarray(cand_hi[t]), jnp.asarray(cand_lo[t]), jnp.asarray(cand_valid[t]),
+            jnp.asarray(members[t]),
+        )
+        same(got.decided[t], want.decided)
+        same_u32(got.winner_hi[t], want.winner_hi)
+        same_u32(got.winner_lo[t], want.winner_lo)
+        same(got.max_count[t], want.max_count)
+        same(got.total_votes[t], want.total_votes)
+    assert got.decided.tolist() == [True, True, False]
+
+
+def test_cohort_watermark_pass_selects_invalidation_per_tenant():
+    # Tenant 0 has subjects in flux after a DOWN alert (its invalidation
+    # pass runs and changes bits), tenant 1 has none, tenant 2 runs with
+    # other watermarks: the select must give each tenant the JAX result.
+    rng = np.random.default_rng(23)
+    c, n, k = 5, 400, 10
+    h, l = np.array([9, 9, 7], np.int32), np.array([4, 4, 2], np.int32)
+    report = (rng.integers(0, 1 << k, size=(T, c, n)) & rng.integers(0, 1 << k, size=(T, c, n)))
+    report = report.astype(np.uint32)
+    new = np.where(rng.random((T, c, n)) < 0.2, rng.integers(0, 1 << k, size=(T, c, n)), 0)
+    new = new.astype(np.uint32)
+    seen_down = np.array([[True, False, True, False, False], [False] * 5, [True] * 5])
+    heard_down = np.zeros((T, c), dtype=bool)
+    released = rng.random((T, c, n)) < 0.05
+    announced = rng.random((T, c)) < 0.3
+    subject_mask = rng.random((T, n)) < 0.95
+    inval_obs = rng.integers(-1, n, size=(T, k, n)).astype(np.int32)
+    got = tcut.cohort_watermark_pass(
+        u32(report), u32(new), torch.from_numpy(seen_down), torch.from_numpy(released),
+        torch.from_numpy(announced), torch.from_numpy(subject_mask),
+        torch.from_numpy(inval_obs), torch.from_numpy(heard_down),
+        torch.from_numpy(h), torch.from_numpy(l), k, select=True,
+    )
+    invalidated = []
+    for t in range(T):
+        want = jcut.cohort_watermark_pass(
+            jnp.asarray(report[t]), jnp.asarray(new[t]), jnp.asarray(seen_down[t]),
+            jnp.asarray(released[t]), jnp.asarray(announced[t]), jnp.asarray(subject_mask[t]),
+            jnp.asarray(inval_obs[t]), jnp.asarray(heard_down[t]), int(h[t]), int(l[t]), k,
+        )
+        same_u32(got[0][t], want[0])
+        for g, w in zip(got[1:], want[1:]):
+            same(g[t], w)
+        merged = (report[t] | new[t]) * subject_mask[t][None, :]
+        invalidated.append(bool(np.any(np.asarray(want[0]) != merged)))
+    assert invalidated == [True, False, True]
+
+
+@pytest.mark.parametrize("spread,permille", [(0, 1000), (2, 1000), (3, 300)])
+def test_delivery_plain_version_takes_a_tenant_axis(spread, permille):
+    # One call over T tenants with distinct epochs equals T one-cluster
+    # calls and the JAX engine's jnp path, tenant by tenant.
+    from collections import namedtuple
+
+    from rapid_tpu.models.state import EngineConfig as JaxConfig
+    from rapid_tpu.models.virtual_cluster import _deliver_alerts
+
+    c, k, n = 33, 10, 300
+    w = (c + 31) // 32
+    rng = np.random.default_rng(24 + spread)
+    blocked = rand_u32(rng, (T, w * k, n)) & rand_u32(rng, (T, w * k, n))
+    age = rng.integers(-3, 6, size=(T, k, n)).astype(np.int32)
+    epochs = np.array([0, 5, 1 << 20], dtype=np.int32)
+    got = tk.delivery_new_bits(u32(blocked), torch.from_numpy(age), torch.from_numpy(epochs),
+                               k, c, spread, permille)
+    assert got.shape == (T, c, n)
+    cfg = JaxConfig(n=n, k=k, h=9, l=4, c=c, delivery_spread=spread,
+                    delivery_prob_permille=permille)
+    State = namedtuple("State", "round_idx config_epoch report_bits")
+    for t in range(T):
+        one = tk.delivery_new_bits_ref(u32(blocked[t]), torch.from_numpy(age[t]),
+                                       torch.from_numpy(epochs[t:t + 1]), k, c, spread, permille)
+        same_u32(got[t], _u32.to_numpy(one))
+        state = State(jnp.int32(0), jnp.int32(epochs[t]), jnp.zeros((c, n), jnp.uint32))
+        want = _deliver_alerts(cfg, state, jnp.asarray(-age[t].T), jnp.asarray(blocked[t]))
+        same_u32(got[t], want)
+    # Each tenant's own epoch salts its draws: epoch 0 everywhere changes
+    # the tenants whose epoch is not 0, whenever delays are drawn.
+    at_zero = tk.delivery_new_bits(u32(blocked), torch.from_numpy(age),
+                                   torch.zeros(T, dtype=torch.int32), k, c, spread, permille)
+    assert [not torch.equal(at_zero[t], got[t]) for t in range(T)] == [False] + [spread > 0] * 2
