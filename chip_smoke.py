@@ -16,21 +16,34 @@ exits non-zero:
    CPU; every lane of the final state and every returned count must match;
 4. main path: the 5%-churn resolution at N=100,000 (``bench.py``'s recipe:
    2,500 crashes and 2,500 joins, 64 cohorts, spread 2, two racing
-   coordinators), one warm-up and three timed samples on fresh state;
+   coordinators), and the same churns with the telemetry plane and a
+   64-round trace ring on (same rounds, cuts and host reads; the decoded
+   activity and ring checked against each churn). The two take turns on
+   fresh state from the same seeds, a warm-up and five timed samples each;
+   then one profiled sample of each;
 5. scale point: ``bench.py``'s crash-1% point at N=1,000,000 (8 cohorts,
    10,000 crashes, one ``run_to_decision``), a warm-up and one timed run;
 6. kernel_fleet: the delivery kernel with a tenant axis against its plain
    version, bit for bit, at the fleet shape (256 tenants, 8 cohorts, K=10,
    n=1,044) with distinct per-tenant epochs in all three delay modes, and
-   at a ragged shape, with timings and the bound;
+   at a ragged shape, with timings, the bound and the SM clock;
 7. fleet_engine: a fleet of 6 tenants (N=256, 262 slots, 40 cohorts, the
    three ``bench.py`` families, a knob mix) through ``run_until_membership``
    on the card and on the CPU: every stacked lane and result must match,
    each tenant must match its own single cluster on the card, and the wave
    loop must make no synchronizing call (``torch.cuda.set_sync_debug_mode``);
-8. fleet_path: ``bench.py``'s fleet point on the port, 256 tenants x 1,024
-   members resolved in one 96-round lockstep wave (telemetry off), a
-   warm-up and three timed samples on fresh fleets, then one profiled wave.
+8. fleet_path: ``bench.py``'s fleet point on the port as ``bench.py`` writes
+   it, 256 tenants x 1,024 members with the telemetry plane on, resolved in
+   one 96-round lockstep wave; in the same call the same waves with the
+   plane off. Per side a warm-up and seven timed samples on fresh fleets
+   (built on the CPU and copied to the card; the sides take turns), then
+   one profiled wave;
+9. telemetry_engine: phase 3's churn with the plane and a 6-round ring
+   (wrapped) on the card and on the CPU: every state, telemetry and ring
+   lane, both digests and the decoded summaries must match, and a
+   plane-off twin must end in the same state; then phase 7's fleet with the
+   plane and a 16-round ring, card against CPU, each tenant against its own
+   single cluster, and its wave loop under the sync check.
 
 The delivery kernel's launch count is zeroed just before each of the
 paths 4, 5 and 8 and read just after. Then the kernels line, the card's
@@ -57,16 +70,24 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 4
 
 HEADLINE = dict(n=100_000, n_join=2_500, n_crash=2_500, k=10, cohorts=64, spread=2)
-TIMED_SAMPLES = 3
+TIMED_SAMPLES = 5  # per side of the plane-on / plane-off comparison
 # bench.py's fleet point: B tenants of N members, n_extra = N // 50 extra
 # slots, 8 cohorts, K=10, fd_threshold 3, spread 2, one 96-round wave.
 FLEET = dict(tenants=256, n=1_024, n_extra=20, k=10, cohorts=8, spread=2, max_steps=96)
-FLEET_TIMED_SAMPLES = 3
+FLEET_TIMED_SAMPLES = 7  # per side of the plane-on / plane-off comparison
 
 
 def check(cond, message):
     if not cond:
         raise RuntimeError(message)
+
+
+def smi(query):
+    """One ``nvidia-smi --query-gpu`` reading of card 0, as its CSV line."""
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
 
 
 def emit(obj):
@@ -169,15 +190,16 @@ def phase_kernel(dev):
     return modes
 
 
-def churn_cluster(n, n_join, n_crash, cohorts, seed, device):
+def churn_cluster(n, n_join, n_crash, cohorts, seed, device, **planes):
     """bench.py's 5%-churn build: round-robin cohorts, FD counters staggered
-    over 3 rounds, ``n_crash`` crashes and ``n_join`` joins."""
+    over 3 rounds, ``n_crash`` crashes and ``n_join`` joins. ``planes``:
+    ``telemetry`` / ``trace`` for ``VirtualCluster.create``."""
     from rapid_tpu_torch.models.virtual_cluster import VirtualCluster
 
     vc = VirtualCluster.create(
         n, n_slots=n + n_join, k=HEADLINE["k"], h=9, l=4, cohorts=cohorts, fd_threshold=3,
         seed=seed, delivery_spread=HEADLINE["spread"], concurrent_coordinators=2,
-        device=device,
+        device=device, **planes,
     )
     vc.assign_cohorts_roundrobin()
     rng = np.random.default_rng(seed + 1000)
@@ -214,13 +236,22 @@ def phase_main_path(dev):
     from rapid_tpu_torch import _host
     from rapid_tpu_torch.ops.kernels import delivery_new_bits
 
-    n, n_join = HEADLINE["n"], HEADLINE["n_join"]
+    n, n_join, trace = HEADLINE["n"], HEADLINE["n_join"], 64
     delivery_new_bits.launches = 0
-    samples = []
-    torch.cuda.reset_peak_memory_stats(dev)
-    for rep in range(1 + TIMED_SAMPLES):
-        vc, victims = churn_cluster(n, n_join, HEADLINE["n_crash"], HEADLINE["cohorts"], rep, dev)
+    # bench.py's churn (planes off) and the same churn with the telemetry
+    # plane and a 64-round ring on take turns on the same seeds, before any
+    # profiling: a warm-up each, then TIMED_SAMPLES pairs.
+    order = [(0, "off"), (0, "on")] + [
+        (seed, side) for seed in range(1, 1 + TIMED_SAMPLES)
+        for side in (("off", "on") if seed % 2 else ("on", "off"))
+    ]
+    samples = {"off": {}, "on": {}}
+    for seed, side in order:
+        planes = dict(telemetry=True, trace=trace) if side == "on" else {}
+        vc, victims = churn_cluster(n, n_join, HEADLINE["n_crash"], HEADLINE["cohorts"], seed, dev,
+                                    **planes)
         torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
         launches0, reads0 = delivery_new_bits.launches, _host.read.count
         start = time.perf_counter()
         rounds, cuts, resolved, sizes = resolve(vc, n)
@@ -234,15 +265,42 @@ def phase_main_path(dev):
         check(not alive[victims].any(), "a crashed member survived the churn")
         check(alive[n:n + n_join].all(), "a joiner was not admitted")
         check(launches > 0, "the main path never launched the delivery kernel")
-        samples.append(dict(warmup=rep == 0, ms=ms, rounds=rounds, cuts=cuts, sizes=list(sizes),
-                            host_reads=reads, host_reads_per_round=reads / rounds,
-                            kernel_launches=launches))
+        sample = dict(warmup=seed == 0, seed=seed, ms=ms, rounds=rounds, cuts=cuts,
+                      sizes=list(sizes), host_reads=reads, host_reads_per_round=reads / rounds,
+                      kernel_launches=launches,
+                      peak_memory_bytes=torch.cuda.max_memory_allocated(dev))
+        if side == "on":
+            vc.sync()
+            activity, ring = vc.activity, vc.trace
+            check(activity["rounds"] == rounds, f"activity counts {activity['rounds']} of {rounds} rounds")
+            check(activity["decisions_fast"] + activity["decisions_classic"] == cuts,
+                  f"activity counts the wrong decisions for {cuts} cuts: {activity}")
+            check(ring["rounds_recorded"] == rounds and ring["decisions_held"] == cuts,
+                  f"the ring holds {ring['rounds_recorded']} rounds, {ring['decisions_held']} decisions")
+        samples[side][seed] = sample
+    for seed, on in samples["on"].items():
+        off = samples["off"][seed]
+        got, want = (on["rounds"], on["cuts"], on["host_reads"]), (off["rounds"], off["cuts"], off["host_reads"])
+        check(got == want, f"seed {seed}: planes on (rounds, cuts, reads) {got}, planes off {want}")
+    profiles = {"off": profile_churn(dev), "on": profile_churn(dev, telemetry=True, trace=trace)}
     total_launches = delivery_new_bits.launches
-    timed = [s["ms"] for s in samples if not s["warmup"]]
+
+    def side_summary(side):
+        timed = [s for s in samples[side].values() if not s["warmup"]]
+        return {"samples": list(samples[side].values()),
+                "median_ms": statistics.median(s["ms"] for s in timed),
+                "peak_memory_bytes": max(s["peak_memory_bytes"] for s in timed),
+                "profile": profiles[side]}
+
+    off, on = side_summary("off"), side_summary("on")
     emit({"phase": "main_path", "n": n, "n_slots": n + n_join, "churn": "2500 crashes + 2500 joins",
-          "cohorts": HEADLINE["cohorts"], "samples": samples, "median_ms": statistics.median(timed),
-          "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
-          "profile": profile_churn(dev)})
+          "cohorts": HEADLINE["cohorts"], **off,
+          "kernels_per_round": {side: profiles[side]["kernels_per_round"] for side in profiles},
+          "telemetry_on": {"trace": trace, **on, "activity": {key: activity[key] for key in (
+              "rounds", "alerts", "decisions_fast", "decisions_classic", "conflict_rate",
+              "active_fraction", "peak_active_fraction", "fast_path_share", "rounds_undecided_hist",
+          )}, "trace_rounds_recorded": ring["rounds_recorded"], "trace_last_path": ring["last_path"]},
+          "churn_ms_on_over_off": on["median_ms"] / off["median_ms"]})
     return total_launches
 
 
@@ -267,8 +325,11 @@ def profile_run(dev, run):
     delivery_ms = sum(e.self_device_time_total for e in kernels
                       if "delivery_new_bits_kernel" in e.key) / 1e3
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:10]
+    host_ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU]
     return result, {
         "wall_ms": wall_ms, "device_ms": device_ms,
+        "host_op_self_ms": sum(e.self_cpu_time_total for e in host_ops) / 1e3,
+        "host_ops": sum(e.count for e in host_ops),
         "device_busy_share": device_ms / wall_ms,
         "delivery_device_ms": delivery_ms,
         "delivery_share": delivery_ms / device_ms if device_ms else None,
@@ -277,13 +338,14 @@ def profile_run(dev, run):
     }
 
 
-def profile_churn(dev):
-    """One more main-path sample under torch.profiler."""
+def profile_churn(dev, **planes):
+    """One more main-path sample under torch.profiler (``planes``:
+    ``telemetry`` / ``trace``), always on the same seed."""
     vc, _ = churn_cluster(HEADLINE["n"], HEADLINE["n_join"], HEADLINE["n_crash"],
-                          HEADLINE["cohorts"], 9, dev)
+                          HEADLINE["cohorts"], 9, dev, **planes)
     (rounds, _, resolved, _), prof = profile_run(dev, lambda: resolve(vc, HEADLINE["n"]))
     check(resolved, "profiled churn did not resolve")
-    return {"rounds": rounds, **prof}
+    return {"rounds": rounds, "kernels_per_round": prof["device_kernels"] / rounds, **prof}
 
 
 def phase_scale_point(dev):
@@ -335,11 +397,13 @@ def phase_kernel_fleet(dev, headline_modes):
               f"batched delivery kernel differs (spread={spread}, permille={permille})")
         bound_ms, bound_by = delivery_bound(c, k, n, spread, permille, t=t)
         headline = next(m for m in headline_modes if m["spread"] == spread)
+        clocks_before = smi("clocks.sm,clocks.max.sm")
+        ms = cuda_ms(lambda: delivery_new_bits(*args))
         modes.append(dict(
-            spread=spread, permille=permille, max_abs_err=err,
-            ms=cuda_ms(lambda: delivery_new_bits(*args)),
+            spread=spread, permille=permille, max_abs_err=err, ms=ms,
             plain_ms=cuda_ms(lambda: delivery_new_bits_ref(*args), reps=20),
-            bound_ms=bound_ms, bound_by=bound_by,
+            bound_ms=bound_ms, bound_by=bound_by, share_of_bound=bound_ms / ms,
+            sm_clock_before_after=[clocks_before, smi("clocks.sm,clocks.max.sm")],
             headline_ms=headline["ms"], headline_bound_ms=headline["bound_ms"],
         ))
     rt, rc, rn = 3, 40, 77
@@ -352,10 +416,11 @@ def phase_kernel_fleet(dev, headline_modes):
     return modes
 
 
-def fleet_clusters(tenants, n, n_extra, cohorts, seed0, device, knobs=((9, 4), (8, 3))):
+def fleet_clusters(tenants, n, n_extra, cohorts, seed0, device, knobs=((9, 4), (8, 3)), **planes):
     """``bench.py``'s ``build_fleet``: tenants cycling the crash-wave,
     join-wave and equal-churn families by ``i % 3``, (H, L) cycling
-    ``knobs``, seeds ``seed0 + i``. Returns (clusters, targets)."""
+    ``knobs``, seeds ``seed0 + i``; ``planes`` (``telemetry`` / ``trace``)
+    go to ``VirtualCluster.create``. Returns (clusters, targets)."""
     from rapid_tpu_torch.models.virtual_cluster import VirtualCluster
 
     clusters, targets = [], []
@@ -363,7 +428,7 @@ def fleet_clusters(tenants, n, n_extra, cohorts, seed0, device, knobs=((9, 4), (
         h, l = knobs[i % len(knobs)]
         vc = VirtualCluster.create(
             n, n_slots=n + n_extra, k=FLEET["k"], h=h, l=l, cohorts=cohorts, fd_threshold=3,
-            seed=seed0 + i, delivery_spread=FLEET["spread"], device=device,
+            seed=seed0 + i, delivery_spread=FLEET["spread"], device=device, **planes,
         )
         vc.assign_cohorts_roundrobin()
         rng = np.random.default_rng(seed0 + 10_000 + i)
@@ -378,10 +443,39 @@ def fleet_clusters(tenants, n, n_extra, cohorts, seed0, device, knobs=((9, 4), (
     return clusters, targets
 
 
+def fleet_on(fleet, dev):
+    """The same fleet with every lane, plane lanes included, copied to ``dev``."""
+    from rapid_tpu_torch.models.state import map_lanes
+    from rapid_tpu_torch.tenancy import TenantFleet
+
+    def move(tree):
+        return map_lanes(lambda x: x.to(dev), tree)
+
+    moved = TenantFleet(fleet.cfg, move(fleet.state), move(fleet.faults), move(fleet.knobs))
+    moved.telem, moved.trace_ring = move(fleet.telem), move(fleet.trace_ring)
+    return moved
+
+
+def sync_checked_wave(fleet, targets, max_steps, max_cuts, min_cuts):
+    """``fleet_wave`` over the fleet's lanes (its planes included) with every
+    synchronizing call turned into an error: the wave loop must make none.
+    Returns what ``fleet_wave`` returns."""
+    from rapid_tpu_torch.tenancy.fleet import fleet_wave
+
+    target_t = torch.tensor(targets, dtype=torch.int32, device=fleet.device)
+    min_t = torch.full_like(target_t, min_cuts)
+    torch.cuda.synchronize(fleet.device)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fleet_wave(fleet.cfg, fleet.state, fleet.faults, fleet.knobs, target_t,
+                          max_steps, max_cuts, min_t, fleet.telem, fleet.trace_ring)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
 def phase_fleet_engine(dev):
     from rapid_tpu_torch.convert import state_to_numpy
     from rapid_tpu_torch.tenancy import TenantFleet
-    from rapid_tpu_torch.tenancy.fleet import fleet_wave
 
     b, n, n_extra, cohorts = 6, 256, 6, 40
     knobs = ((9, 4), (8, 3), (7, 2))
@@ -410,17 +504,8 @@ def phase_fleet_engine(dev):
     # The wave loop makes no synchronizing call: run it once more with
     # every sync turned into an error (inputs built before).
     clusters, _ = fleet_clusters(b, n, n_extra, cohorts, 300, dev, knobs)
-    fleet = TenantFleet.from_clusters(clusters)
-    target_t = torch.tensor(targets, dtype=torch.int32, device=dev)
-    min_cuts = torch.ones_like(target_t)
-    torch.cuda.synchronize(dev)
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        out = fleet_wave(fleet.cfg, fleet.state, fleet.faults, fleet.knobs, target_t,
-                         wave["max_steps"], wave["max_cuts"], min_cuts)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    check([x.tolist() for x in out[1:]] == results["card"], "sync-checked wave differs")
+    out = sync_checked_wave(TenantFleet.from_clusters(clusters), targets, **wave)
+    check([x.tolist() for x in out[1:5]] == results["card"], "sync-checked wave differs")
     emit({"phase": "fleet_engine", "tenants": b, "n": n, "n_slots": n + n_extra,
           "cohorts": cohorts, "knobs": [list(kn) for kn in knobs], "rounds": rounds,
           "cuts": cuts, "sizes": sizes, "lanes_bit_exact": len(lanes["cpu"]),
@@ -435,21 +520,31 @@ def phase_fleet_path(dev):
     b, n, n_extra = FLEET["tenants"], FLEET["n"], FLEET["n_extra"]
     wave = dict(max_steps=FLEET["max_steps"], max_cuts=4, min_cuts=1)
 
-    def fresh(seed0):
-        clusters, targets = fleet_clusters(b, n, n_extra, FLEET["cohorts"], seed0, dev)
-        fleet = TenantFleet.from_clusters(clusters)
+    def fresh(seed0, telemetry):
+        # Built on the CPU and copied to the card: the same lanes, in ~1 s
+        # instead of ~10 s of small launches per fleet.
+        clusters, targets = fleet_clusters(
+            b, n, n_extra, FLEET["cohorts"], seed0, torch.device("cpu"), telemetry=telemetry
+        )
+        fleet = fleet_on(TenantFleet.from_clusters(clusters), dev)
         fleet.sync()
         return fleet, targets
 
+    # bench.py's form (plane on) and the plane-off form on the same seeds,
+    # taking turns, so their difference is read within one call.
+    order = [("on", None), ("off", None)] + [
+        (side, rep) for rep in range(FLEET_TIMED_SAMPLES)
+        for side in (("off", "on") if rep % 2 == 0 else ("on", "off"))
+    ]
     delivery_new_bits.launches = 0
-    samples = []
-    for rep in range(1 + FLEET_TIMED_SAMPLES):
-        fleet, targets = fresh(50_000 if rep == 0 else 60_000 + 1_000 * (rep - 1))
+    samples = {"on": [], "off": []}
+    activity = None
+    for side, rep in order:
+        fleet, targets = fresh(50_000 if rep is None else 60_000 + 1_000 * rep, side == "on")
         torch.cuda.reset_peak_memory_stats(dev)
         launches0, reads0 = delivery_new_bits.launches, _host.read.count
         start = time.perf_counter()
         rounds, cuts, resolved, sizes = fleet.run_until_membership(targets, **wave)
-        fleet.sync()
         ms = (time.perf_counter() - start) * 1e3
         launches = delivery_new_bits.launches - launches0
         reads = _host.read.count - reads0
@@ -458,26 +553,158 @@ def phase_fleet_path(dev):
               f"{launches} kernel launches in a {wave['max_steps']}-round wave")
         check(reads == 1, f"the wave made {reads} host reads")
         check((fleet.membership_sizes() == np.asarray(targets)).all(), "a tenant missed its target")
-        samples.append(dict(
-            warmup=rep == 0, ms=ms, view_changes=int(cuts.sum()),
-            view_changes_per_sec=int(cuts.sum()) / (ms / 1e3),
+        samples[side].append(dict(
+            warmup=rep is None, seed0=50_000 if rep is None else 60_000 + 1_000 * rep, ms=ms,
+            view_changes=int(cuts.sum()), view_changes_per_sec=int(cuts.sum()) / (ms / 1e3),
             max_tenant_rounds=int(rounds.max()), host_reads=reads, kernel_launches=launches,
             peak_memory_bytes=torch.cuda.max_memory_allocated(dev),
         ))
+        if side == "on":
+            fleet.sync()  # bench.py reads the lanes after its timed wave
+            rollup, tenants = fleet.activity, fleet.tenant_activity
+            check(rollup["rounds"] == int(rounds.sum()), "activity misses wave rounds")
+            check(rollup["decisions_fast"] + rollup["decisions_classic"] == int(cuts.sum()),
+                  "activity misses wave decisions")
+            check([a["rounds"] for a in tenants] == rounds.tolist(), "a tenant's rounds differ")
+            if rep is not None:
+                rates = sorted(a["conflict_rate"] for a in tenants)
+                activity = {
+                    "seed0": samples[side][-1]["seed0"],
+                    **{key: rollup[key] for key in (
+                        "conflict_rate", "fast_path_share", "active_fraction",
+                        "decisions_fast", "decisions_classic")},
+                    "tenant_conflict_rate_min_median_max": [
+                        rates[0], statistics.median(rates), rates[-1]],
+                }
     total_launches = delivery_new_bits.launches
-    fleet, targets = fresh(70_000)
-    (_, _, resolved, _), prof = profile_run(
-        dev, lambda: fleet.run_until_membership(targets, **wave)
-    )
-    check(resolved.all(), "profiled fleet wave did not resolve")
-    timed = [s["ms"] for s in samples if not s["warmup"]]
+    sides = {}
+    for side in ("on", "off"):
+        fleet, targets = fresh(70_000, side == "on")
+        (_, _, resolved, _), prof = profile_run(
+            dev, lambda: fleet.run_until_membership(targets, **wave)
+        )
+        check(resolved.all(), "profiled fleet wave did not resolve")
+        prof["kernels_per_round"] = prof["device_kernels"] / wave["max_steps"]
+        timed = [s for s in samples[side] if not s["warmup"]]
+        sides[side] = {
+            "samples": samples[side],
+            "median_ms": statistics.median(s["ms"] for s in timed),
+            "median_view_changes_per_sec": statistics.median(
+                s["view_changes_per_sec"] for s in timed),
+            "view_changes_per_wave": [s["view_changes"] for s in timed],
+            "peak_memory_bytes": max(s["peak_memory_bytes"] for s in timed),
+            "profile": prof,
+        }
     emit({"phase": "fleet_path", "tenants": b, "n": n, "n_slots": n + n_extra,
-          "cohorts": FLEET["cohorts"], "rounds_per_wave": wave["max_steps"], "telemetry": "off",
-          "samples": samples, "median_ms": statistics.median(timed),
-          "median_view_changes_per_sec": statistics.median(
-              s["view_changes_per_sec"] for s in samples if not s["warmup"]),
-          "profile": prof})
+          "cohorts": FLEET["cohorts"], "rounds_per_wave": wave["max_steps"],
+          "telemetry_on": {**sides["on"], "activity": activity}, "telemetry_off": sides["off"],
+          "wave_ms_on_over_off": sides["on"]["median_ms"] / sides["off"]["median_ms"]})
     return total_launches
+
+
+def launch_us(dev, count=2000):
+    """Host microseconds per launch of a one-element kernel, ``count``
+    launches back to back: the host's launch rate, which bounds both
+    launch-bound paths (read after every phase, since it moves)."""
+    x = torch.zeros(1, device=dev)
+    torch.cuda.synchronize(dev)
+    start = time.perf_counter()
+    for _ in range(count):
+        x.add_(1)
+    torch.cuda.synchronize(dev)
+    return (time.perf_counter() - start) / count * 1e6
+
+
+def plane_lanes(tree):
+    """Every lane of a state, fault, telemetry or ring tree as numpy."""
+    from rapid_tpu_torch.convert import state_to_numpy
+
+    return {} if tree is None else state_to_numpy(tree)
+
+
+def check_same_lanes(got, want, what):
+    check(set(got) == set(want), f"{what}: different lanes")
+    for field, value in want.items():
+        check(np.array_equal(got[field], value), f"{what}: lane {field} differs")
+
+
+def phase_telemetry_engine(dev):
+    from rapid_tpu_torch.models.state import map_lanes
+    from rapid_tpu_torch.models.virtual_cluster import telemetry_digest, trace_digest
+    from rapid_tpu_torch.tenancy import TenantFleet
+
+    # Phase 3's churn with both planes, then quiet rounds so that the
+    # 6-round ring has wrapped more than once.
+    n, n_churn, ring, quiet = 4096, 102, 6, 6
+    runs = {}
+    for where, device, planes in (
+        ("card", dev, True), ("cpu", torch.device("cpu"), True), ("card_off", dev, False),
+    ):
+        vc, _ = churn_cluster(n, n_churn, n_churn, 40, 7, device,
+                              telemetry=planes, trace=ring if planes else 0)
+        result = resolve(vc, n)
+        for _ in range(quiet):
+            vc.step()
+        checksum = vc.sync()
+        lanes = {**plane_lanes(vc.state), **plane_lanes(vc.faults),
+                 **plane_lanes(vc.telem), **plane_lanes(vc.trace_ring)}
+        digests = [] if not planes else [
+            d(map_lanes(lambda x: x[None], tree)).cpu().numpy()
+            for d, tree in ((telemetry_digest, vc.telem), (trace_digest, vc.trace_ring))
+        ]
+        runs[where] = (result, checksum, lanes, digests, vc.activity, vc.trace)
+    card, cpu, off = runs["card"], runs["cpu"], runs["card_off"]
+    check(card[0] == cpu[0] == off[0], f"planes: results differ {card[0]}, {cpu[0]}, {off[0]}")
+    check(card[1] == cpu[1] == off[1], "planes: sync checksums differ")
+    check_same_lanes(card[2], cpu[2], "planes card vs cpu")
+    check_same_lanes({f: card[2][f] for f in off[2]}, off[2], "planes on vs off")
+    check(all(np.array_equal(a, b) for a, b in zip(card[3], cpu[3])), "digests differ card vs cpu")
+    check(card[4] == cpu[4] and card[5] == cpu[5], "decoded activity or ring differs")
+    rounds = card[0][0] + quiet
+    check(card[4]["rounds"] == rounds == card[5]["rounds_recorded"], "plane missed rounds")
+    check(card[5]["wraps"] == rounds // ring >= 1 and card[5]["rounds_held"] == ring,
+          f"the {ring}-round ring did not wrap as counted: {card[5]}")
+
+    # Phase 7's fleet with both planes: card against CPU, each tenant against
+    # its own single cluster, and the wave loop under the sync check.
+    b, fn, n_extra, cohorts, fring = 6, 256, 6, 40, 16
+    knobs = ((9, 4), (8, 3), (7, 2))
+    wave = dict(max_steps=FLEET["max_steps"], max_cuts=4, min_cuts=1)
+    planes = dict(telemetry=True, trace=fring)
+    results, lanes = {}, {}
+    for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        clusters, targets = fleet_clusters(b, fn, n_extra, cohorts, 300, device, knobs, **planes)
+        fleet = TenantFleet.from_clusters(clusters)
+        results[where] = [r.tolist() for r in fleet.run_until_membership(targets, **wave)]
+        fleet.sync()
+        lanes[where] = {**plane_lanes(fleet.state), **plane_lanes(fleet.telem),
+                        **plane_lanes(fleet.trace_ring)}
+        lanes[where + "_decoded"] = (fleet.tenant_activity, fleet.tenant_trace)
+    check(results["card"] == results["cpu"], f"fleet with planes: results differ {results}")
+    check(all(results["card"][2]), "fleet with planes did not resolve")
+    check_same_lanes(lanes["card"], lanes["cpu"], "fleet planes card vs cpu")
+    check(lanes["card_decoded"] == lanes["cpu_decoded"], "fleet decoded planes differ")
+    singles, _ = fleet_clusters(b, fn, n_extra, cohorts, 300, dev, knobs, **planes)
+    for i, vc in enumerate(singles):
+        vc.run_until_membership(targets[i], **wave)
+        for tree in (vc.telem, vc.trace_ring):
+            for field, value in plane_lanes(tree).items():
+                check(np.array_equal(lanes["card"][field][i], value),
+                      f"tenant {i}: {field} differs from its single cluster")
+
+    clusters, _ = fleet_clusters(b, fn, n_extra, cohorts, 300, dev, knobs, **planes)
+    out = sync_checked_wave(TenantFleet.from_clusters(clusters), targets, **wave)
+    check([x.tolist() for x in out[1:5]] == results["card"], "sync-checked wave with planes differs")
+    check_same_lanes({**plane_lanes(out[5]), **plane_lanes(out[6])},
+                     {f: lanes["card"][f] for f in (*out[5]._fields, *out[6]._fields)},
+                     "sync-checked wave planes")
+    emit({"phase": "telemetry_engine", "n": n, "cohorts": 40, "trace": ring,
+          "rounds": rounds, "wraps": card[5]["wraps"], "lanes_bit_exact": len(cpu[2]),
+          "activity": {k: card[4][k] for k in ("rounds", "alerts", "active_sum", "invalidations",
+                                               "decisions_fast", "decisions_classic")},
+          "fleet": {"tenants": b, "n": fn, "trace": fring, "rounds": results["card"][0],
+                    "lanes_bit_exact": len(lanes["cpu"]), "singles_bit_exact": b,
+                    "wave_sync_free": True}})
 
 
 def main() -> int:
@@ -487,23 +714,33 @@ def main() -> int:
     from rapid_tpu_torch import _build
 
     dev = torch.device("cuda", 0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    card = smi("name,power.limit")
     start = time.perf_counter()
     _build.build_all()
     ptxas = [ln.strip() for log in _build.build_log.values() for ln in log.splitlines()
              if "registers" in ln or "spill" in ln]
     emit({"phase": "build", "seconds": time.perf_counter() - start, "sources": _build.sources(),
-          "ptxas": ptxas, "card": smi, "torch": torch.__version__, "cuda": torch.version.cuda})
+          "ptxas": ptxas, "card": card, "torch": torch.__version__, "cuda": torch.version.cuda})
 
-    modes = phase_kernel(dev)
-    phase_engine(dev)
-    launches = {"churn": phase_main_path(dev), "scale_point": phase_scale_point(dev)}
-    fleet_modes = phase_kernel_fleet(dev, modes)
-    phase_fleet_engine(dev)
-    launches["fleet_wave"] = phase_fleet_path(dev)
+    seconds, launch = {}, {"start": launch_us(dev)}
+
+    def timed(name, fn, *args):
+        begin = time.perf_counter()
+        out = fn(dev, *args)
+        seconds[name] = time.perf_counter() - begin
+        launch[name] = launch_us(dev)
+        return out
+
+    modes = timed("kernel", phase_kernel)
+    timed("engine", phase_engine)
+    launches = {"churn": timed("main_path", phase_main_path),
+                "scale_point": timed("scale_point", phase_scale_point)}
+    fleet_modes = timed("kernel_fleet", phase_kernel_fleet, modes)
+    timed("fleet_engine", phase_fleet_engine)
+    launches["fleet_wave"] = timed("fleet_path", phase_fleet_path)
+    timed("telemetry_engine", phase_telemetry_engine)
+    emit({"phase": "timing", "seconds": seconds, "total_seconds": time.perf_counter() - start,
+          "launch_us_after": launch})
 
     main_mode = next(m for m in modes if m["spread"] == HEADLINE["spread"] and m["permille"] >= 1000)
     fleet_mode = next(m for m in fleet_modes if m["spread"] == FLEET["spread"])
@@ -522,7 +759,7 @@ def main() -> int:
         "library_ms": None,
         "fleet_shape": {key: fleet_mode[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
     }]})
-    print(smi, flush=True)
+    print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -1,8 +1,9 @@
 """State carried across as numpy arrays.
 
 The port never sees a JAX array. A caller holding the JAX package's state
-turns it into numpy (``np.asarray(getattr(state, field))``) and builds the
-port's state from that; uint32 lanes become stored int32 bit patterns
+(or its telemetry lanes and trace ring) turns it into numpy
+(``np.asarray(getattr(state, field))``) and builds the port's lanes from
+that; uint32 lanes become stored int32 bit patterns
 (:mod:`rapid_tpu_torch._u32`) and come back out as uint32. A fleet's
 stacked lanes carry a leading ``[t]`` axis (``tenants=t``).
 """
@@ -18,22 +19,34 @@ from rapid_tpu_torch import _u32
 from rapid_tpu_torch.models.state import (
     DTYPES,
     LANES,
+    TELEMETRY_LANE_SPECS,
+    TRACE_LANE_SPECS,
     EngineConfig,
     EngineState,
     FaultInputs,
+    TelemetryLanes,
+    TraceRing,
+    lane_dims,
 )
 
 _NUMPY = {"u32": np.uint32, "i32": np.int32, "bool": np.bool_}
 
+#: Every lane the bridge carries: the engine's, then the telemetry plane's
+#: and the trace ring's (all int32).
+_SPECS = {
+    **LANES,
+    **{f: (shape, "i32") for f, shape in {**TELEMETRY_LANE_SPECS, **TRACE_LANE_SPECS}.items()},
+}
+
 
 def _expected_shape(field: str, cfg: EngineConfig, tenants) -> tuple:
-    dims = {"n": cfg.n, "k": cfg.k, "c": cfg.c}
+    dims = lane_dims(cfg)
     lead = () if tenants is None else (tenants,)
-    return lead + tuple(dims[s] for s in LANES[field][0])
+    return lead + tuple(dims[s] for s in _SPECS[field][0])
 
 
 def _lane_from_numpy(field: str, arr, cfg: EngineConfig, device, tenants) -> torch.Tensor:
-    kind = LANES[field][1]
+    kind = _SPECS[field][1]
     a = np.asarray(arr)
     want = _expected_shape(field, cfg, tenants)
     if a.shape != want:
@@ -68,15 +81,35 @@ def faults_from_numpy(
     return _from_numpy(FaultInputs, cfg, arrays, device, tenants)
 
 
+def telemetry_from_numpy(
+    cfg: EngineConfig, arrays: Dict[str, np.ndarray], device, tenants: Optional[int] = None
+) -> TelemetryLanes:
+    """:class:`TelemetryLanes` on ``device`` from one int32 numpy array per
+    field (a JAX cluster's ``telem``; stacked with ``tenants=t``)."""
+    return _from_numpy(TelemetryLanes, cfg, arrays, device, tenants)
+
+
+def trace_from_numpy(
+    cfg: EngineConfig, arrays: Dict[str, np.ndarray], device, tenants: Optional[int] = None
+) -> TraceRing:
+    """A :class:`TraceRing` on ``device`` from one int32 numpy array per
+    field (a JAX cluster's ``trace_ring``; stacked with ``tenants=t``)."""
+    return _from_numpy(TraceRing, cfg, arrays, device, tenants)
+
+
 def state_to_numpy(state) -> Dict[str, np.ndarray]:
-    """Every lane of an :class:`EngineState`, :class:`FaultInputs` or
-    :class:`StepEvents` (one cluster's or a fleet's stacked lanes) as
-    numpy, at the JAX package's dtypes. Raises if a lane carries another
-    dtype than the layout says."""
+    """Every lane of an :class:`EngineState`, :class:`FaultInputs`,
+    :class:`StepEvents`, :class:`TelemetryLanes` or :class:`TraceRing` (one
+    cluster's or a fleet's stacked lanes) as numpy, at the JAX package's
+    dtypes. Raises if a lane carries another dtype than the layout says."""
     out = {}
     for field, value in state._asdict().items():
-        kind = LANES[field][1]
+        kind = _SPECS[field][1]
         if value.dtype != DTYPES[kind]:
             raise TypeError(f"lane {field!r} is {value.dtype}, the layout says {DTYPES[kind]}")
         out[field] = _u32.to_numpy(value) if kind == "u32" else value.detach().cpu().numpy()
     return out
+
+
+#: The plane lanes go out through the same bridge as the state.
+telemetry_to_numpy = trace_to_numpy = state_to_numpy

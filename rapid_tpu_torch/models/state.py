@@ -9,7 +9,8 @@ branches on them.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+import math
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -50,9 +51,10 @@ class EngineConfig(NamedTuple):
     pallas_lanes: int = 128
     # State compaction (not ported yet: must be 0).
     compact: int = 0
-    # Device telemetry plane (not ported yet: must be 0).
+    # 1 = carry the device telemetry plane (:class:`TelemetryLanes`).
     telemetry: int = 0
-    # Device round-trace ring capacity (not ported yet: must be 0).
+    # R > 0 = carry the device round-trace ring of the last R rounds
+    # (:class:`TraceRing`); needs ``telemetry``.
     trace: int = 0
 
 
@@ -190,23 +192,159 @@ class StepEvents(NamedTuple):
     prop_lo: torch.Tensor  # [c] stored uint32
 
 
+#: Log2 bucket count of the rounds-undecided histogram: bucket b counts
+#: decisions that sat undecided for r rounds with floor(log2(max(r, 1)))
+#: == b, clamped into the last bucket.
+TELEMETRY_BUCKETS = 8
+
+#: field -> shape symbols over (n, k, c, b), ``b`` = :data:`TELEMETRY_BUCKETS`.
+#: Every telemetry lane is int32 (accumulators, never narrowed).
+TELEMETRY_LANE_SPECS: Dict[str, Tuple[str, ...]] = {
+    "tl_rounds": (),
+    "tl_alerts": (),
+    "tl_active": ("c", "n"),
+    "tl_invalidated": ("c", "n"),
+    "tl_proposals": ("c",),
+    "tl_tally_sum": (),
+    "tl_fast_decisions": (),
+    "tl_classic_decisions": (),
+    "tl_conflict_rounds": (),
+    "tl_undecided_hist": ("b",),
+}
+
+
+class TelemetryLanes(NamedTuple):
+    """On-device activity, tally, conflict and decision-path accumulators,
+    carried beside :class:`EngineState` through every round when
+    ``EngineConfig.telemetry == 1``. The round writes them and never reads
+    them; the drivers read them only at ``sync()``, through the digests. A
+    fleet's lanes carry a leading tenant axis."""
+
+    tl_rounds: torch.Tensor  # [] rounds stepped
+    tl_alerts: torch.Tensor  # [] edge alerts applied (sum of alerts_emitted)
+    # Rounds each (cohort, subject) slot was active: nonzero report bits or
+    # a watermark tally in the [L, H) flux band.
+    tl_active: torch.Tensor  # [c, n]
+    tl_invalidated: torch.Tensor  # [c, n] implicit-invalidation events
+    tl_proposals: torch.Tensor  # [c] proposals released per cohort
+    tl_tally_sum: torch.Tensor  # [] winning-tally sizes, summed at decisions
+    tl_fast_decisions: torch.Tensor  # [] fast-path decisions
+    tl_classic_decisions: torch.Tensor  # [] classic-fallback decisions
+    # Rounds where some cohort had announced and the fast path did not decide.
+    tl_conflict_rounds: torch.Tensor  # []
+    tl_undecided_hist: torch.Tensor  # [TELEMETRY_BUCKETS] log2(rounds undecided) at decision
+
+
+#: field -> shape symbols over (r,), ``r`` = ``EngineConfig.trace``. Every
+#: ring lane is int32.
+TRACE_LANE_SPECS: Dict[str, Tuple[str, ...]] = {
+    "tr_round": ("r",),
+    "tr_epoch": ("r",),
+    "tr_active": ("r",),
+    "tr_alerts": ("r",),
+    "tr_proposals": ("r",),
+    "tr_tally": ("r",),
+    "tr_path": ("r",),
+    "tr_conflict": ("r",),
+    "tr_undecided": ("r",),
+    "tr_cursor": (),
+    "tr_wraps": (),
+}
+
+
+class TraceRing(NamedTuple):
+    """A device-resident record of the last ``EngineConfig.trace`` = R
+    rounds, one slot per round, written by the round body and read only at
+    ``sync()`` (the telemetry plane's discipline; ``trace > 0`` needs
+    ``telemetry``).
+
+    ``tr_cursor`` counts records ever written; a round lands in slot
+    ``tr_cursor % R``. ``tr_wraps`` counts writes into slot R - 1, so
+    ``tr_wraps == tr_cursor // R`` and ``tr_cursor == tl_rounds``. A fleet
+    gates the ring with the lanes it refines: a frozen tenant's cursor
+    holds still."""
+
+    tr_round: torch.Tensor  # [R] round_idx the round started with
+    tr_epoch: torch.Tensor  # [R] config_epoch the round ran in
+    tr_active: torch.Tensor  # [R] active (cohort, subject) slots
+    tr_alerts: torch.Tensor  # [R] edge alerts applied
+    tr_proposals: torch.Tensor  # [R] proposals released
+    tr_tally: torch.Tensor  # [R] winning-tally size (0 unless decided)
+    tr_path: torch.Tensor  # [R] decision path: 0 none, 1 fast, 2 classic
+    tr_conflict: torch.Tensor  # [R] announced-but-no-fast-decision flag
+    # [R] rounds_undecided AFTER the round's update (the JAX engine stores
+    # this value; its field comment says "entering the round").
+    tr_undecided: torch.Tensor
+    tr_cursor: torch.Tensor  # [] records ever written
+    tr_wraps: torch.Tensor  # [] writes into slot R - 1
+
+
+def lane_dims(cfg: EngineConfig) -> Dict[str, int]:
+    """The size of each shape symbol of :data:`LANES`,
+    :data:`TELEMETRY_LANE_SPECS` and :data:`TRACE_LANE_SPECS` under ``cfg``."""
+    return {"n": cfg.n, "k": cfg.k, "c": cfg.c, "b": TELEMETRY_BUCKETS, "r": cfg.trace}
+
+
+def _zero_lanes(cls, specs, cfg: EngineConfig, device, tenants) -> NamedTuple:
+    dims = lane_dims(cfg)
+    lead = () if tenants is None else (tenants,)
+    return cls(**{
+        field: torch.zeros(lead + tuple(dims[s] for s in shape), dtype=torch.int32, device=device)
+        for field, shape in specs.items()
+    })
+
+
+def _lanes_bytes(specs, cfg: EngineConfig) -> int:
+    dims = lane_dims(cfg)
+    return sum(4 * math.prod(dims[s] for s in shape) for shape in specs.values())
+
+
+def initial_telemetry(cfg: EngineConfig, device, tenants: Optional[int] = None) -> TelemetryLanes:
+    """All-zero telemetry lanes on ``device``; with ``tenants=t`` a
+    fleet's, every lane ``[t, ...]``."""
+    return _zero_lanes(TelemetryLanes, TELEMETRY_LANE_SPECS, cfg, device, tenants)
+
+
+def telemetry_bytes_total(cfg: EngineConfig) -> int:
+    """At-rest bytes of one cluster's telemetry lanes (all int32)."""
+    return _lanes_bytes(TELEMETRY_LANE_SPECS, cfg)
+
+
+def initial_trace(cfg: EngineConfig, device, tenants: Optional[int] = None) -> TraceRing:
+    """An all-zero trace ring of capacity ``cfg.trace`` on ``device``; with
+    ``tenants=t`` a fleet's."""
+    return _zero_lanes(TraceRing, TRACE_LANE_SPECS, cfg, device, tenants)
+
+
+def trace_bytes_total(cfg: EngineConfig) -> int:
+    """At-rest bytes of one cluster's trace ring (all int32)."""
+    return _lanes_bytes(TRACE_LANE_SPECS, cfg)
+
+
 def map_lanes(fn, tree):
     """``fn`` applied to every lane of an :class:`EngineState`,
-    :class:`FaultInputs` or :class:`StepEvents`; a tree of the same type."""
-    return type(tree)(*map(fn, tree))
+    :class:`FaultInputs`, :class:`StepEvents`, :class:`TelemetryLanes` or
+    :class:`TraceRing`; a tree of the same type. ``None`` (a plane that is
+    off) stays ``None``."""
+    return None if tree is None else type(tree)(*map(fn, tree))
 
 
 def stack_lanes(trees):
-    """B same-shape trees (states, fault masks or events) stacked lane by
-    lane along a new leading tenant axis (the JAX package's
-    ``stack_pytrees``)."""
+    """B same-shape trees (states, fault masks, events or plane lanes)
+    stacked lane by lane along a new leading tenant axis (the JAX package's
+    ``stack_pytrees``); ``None`` for planes that are off."""
+    if trees[0] is None:
+        return None
     return type(trees[0])(*(torch.stack(lanes) for lanes in zip(*trees)))
 
 
 def select_lanes(cond: torch.Tensor, new, old):
     """Per-tenant select over whole trees: lane by lane, tenant i takes
     ``new`` where ``cond[i]`` and ``old`` elsewhere (what ``jax.vmap``
-    makes of a ``lax.cond`` or a frozen ``fori_loop`` lane)."""
+    makes of a ``lax.cond`` or a frozen ``fori_loop`` lane). ``None`` (a
+    plane that is off) stays ``None``."""
+    if new is None:
+        return None
     return type(new)(
         *(torch.where(per_batch(cond, a), a, b) for a, b in zip(new, old))
     )
@@ -222,19 +360,19 @@ def resolve_device(device=None) -> torch.device:
 
 
 def validate_config(cfg: EngineConfig) -> None:
-    """The JAX package's config checks, plus the options not ported yet."""
+    """The JAX package's config checks (with its ``VirtualCluster``
+    construction checks on ``trace``), plus the option not ported yet."""
     if cfg.compact:
         raise NotImplementedError(
             "compact=1 is not ported yet (ROADMAP.md Queue 1 item 10, compaction)"
         )
-    if cfg.telemetry:
-        raise NotImplementedError(
-            "telemetry=1 is not ported yet (ROADMAP.md Queue 1 item 9, telemetry plane)"
+    if cfg.trace and not cfg.telemetry:
+        raise ValueError(
+            "EngineConfig.trace requires telemetry: the round-trace ring "
+            "refines the telemetry plane (pass telemetry=True)"
         )
-    if cfg.trace:
-        raise NotImplementedError(
-            "trace>0 is not ported yet (ROADMAP.md Queue 1 item 9, round-trace ring)"
-        )
+    if cfg.trace < 0:
+        raise ValueError(f"trace capacity must be >= 0, got {cfg.trace}")
     if not 1 <= cfg.k <= 32:
         raise ValueError(f"K must be in [1, 32]: ring reports are uint32 bitmasks (got K={cfg.k})")
     if cfg.c > 1024:

@@ -1,6 +1,6 @@
 """A whole Rapid-style cluster of N virtual endpoints as one device program
 per round (port of ``rapid_tpu/models/virtual_cluster.py``, single cluster,
-telemetry and trace planes not ported).
+with the device telemetry plane and the round-trace ring).
 
 One round, for every virtual node at once: probe tick -> edge alerts ->
 cohort delivery -> watermark cut detection -> fast-round votes -> quorum
@@ -29,6 +29,13 @@ the loops are Python loops, and each gate becomes one of two things:
 A single-cluster round therefore makes two reads in the common case: the
 invalidation gate and the packed (fast decision, fallback due) pair. A
 round whose fallback is due makes a third.
+
+With ``telemetry=True`` (and ``trace=R``) the drivers carry
+:class:`~rapid_tpu_torch.models.state.TelemetryLanes` (and
+:class:`~rapid_tpu_torch.models.state.TraceRing`) through every round. The
+round writes them and never branches on them, so results are the same with
+the planes on or off, and no read is added: the lanes reach the host only
+through :meth:`VirtualCluster.sync`.
 """
 
 from __future__ import annotations
@@ -41,20 +48,26 @@ import torch
 from rapid_tpu_torch import _host, _u32
 from rapid_tpu_torch.models.state import (
     FIRE_NEVER,
+    TELEMETRY_BUCKETS,
     EngineConfig,
     EngineState,
     FaultInputs,
     StepEvents,
+    TelemetryLanes,
+    TraceRing,
     initial_state,
+    initial_telemetry,
+    initial_trace,
     map_lanes,
     resolve_device,
     validate_config,
 )
-from rapid_tpu_torch.ops.consensus import tally_candidates
-from rapid_tpu_torch.ops.cut_detection import cohort_watermark_pass
+from rapid_tpu_torch.ops.consensus import tally_candidates, undecided_log2_bucket
+from rapid_tpu_torch.ops.cut_detection import cohort_watermark_pass, telemetry_cut_masks
 from rapid_tpu_torch.ops.hashing import masked_set_hash
 from rapid_tpu_torch.ops.kernels import delivery_new_bits, per_batch, popcount32
 from rapid_tpu_torch.ops.rings import predecessor_of_keys, ring_topology_from_perm
+from rapid_tpu_torch.utils import engine_telemetry
 
 
 def cohort_words(c: int) -> int:
@@ -63,7 +76,8 @@ def cohort_words(c: int) -> int:
 
 
 def _one(tree):
-    """One cluster's lanes as a fleet of one (a leading axis of 1)."""
+    """One cluster's lanes as a fleet of one (a leading axis of 1); ``None``
+    stays ``None``."""
     return map_lanes(lambda x: x.unsqueeze(0), tree)
 
 
@@ -249,16 +263,22 @@ def _compute_round(
     faults: FaultInputs,
     edge_masks=None,
     select: bool = False,
-) -> Tuple[EngineState, object, torch.Tensor, StepEvents]:
+    telem: Optional[TelemetryLanes] = None,
+    trace: Optional[TraceRing] = None,
+):
     """One protocol round for every tenant of ``[t, ...]`` lanes, WITHOUT
-    the view change: returns the round-advanced state, whether it decided,
-    the decided cuts ``[t, n]`` and the round's events (``[t]`` scalars).
+    the view change: returns ``(state, decided, winner_mask, events, telem,
+    trace)``: the round-advanced state, whether it decided, the decided
+    cuts ``[t, n]``, the round's events (``[t]`` scalars) and the plane
+    lanes advanced by this round (``None`` where none were given, and then
+    the round launches nothing for them).
 
     ``select=False`` (the single cluster, ``t = 1``): the invalidation and
     classic-attempt gates are host branches on counted reads, and
     ``decided`` is a host bool. ``select=True`` (a fleet): both are
     computed for every tenant (the attempt kept where it is due), no read
-    is made, and ``decided`` is the ``[t]`` bool tensor."""
+    is made, and ``decided`` is the ``[t]`` bool tensor. The planes add no
+    read either way."""
     c = cfg.c
     t = state.alive.shape[0]
     dev = state.alive.device
@@ -281,10 +301,11 @@ def _compute_round(
     heard_down = ((new_bits != 0) & state.alive[:, None, :]).any(-1)
 
     # 3. Cut detection per cohort.
+    subject_mask = state.alive | state.join_pending
     report_bits, released, announced, seen_down, proposed_now, prop_masks = (
         cohort_watermark_pass(
             state.report_bits, new_bits, state.seen_down, state.released, state.announced,
-            state.alive | state.join_pending, state.inval_obs, heard_down, cfg.h, cfg.l, cfg.k,
+            subject_mask, state.inval_obs, heard_down, cfg.h, cfg.l, cfg.k,
             select=select,
         )
     )
@@ -395,7 +416,57 @@ def _compute_round(
         prop_hi=prop_hi,
         prop_lo=prop_lo,
     )
-    return round_state, decided_out, winner_mask, events
+    if telem is None:
+        return round_state, decided_out, winner_mask, events, None, None
+
+    # Device telemetry plane: written here, never read by the round. The
+    # scalars reuse what the round computed (``stalled`` is the conflict
+    # flag: announced and no fast decision).
+    active, invalidated = telemetry_cut_masks(
+        state.report_bits, new_bits, report_bits, subject_mask, cfg.h, cfg.l
+    )
+    tally_at_decision = torch.where(decided, tally.max_count, 0)
+    bins = torch.arange(TELEMETRY_BUCKETS, dtype=torch.int32, device=dev)
+    bucket = undecided_log2_bucket(rounds_undecided, TELEMETRY_BUCKETS)
+    telem = TelemetryLanes(
+        tl_rounds=telem.tl_rounds + 1,
+        tl_alerts=telem.tl_alerts + alerts_emitted,
+        tl_active=telem.tl_active + active,
+        tl_invalidated=telem.tl_invalidated + invalidated,
+        tl_proposals=telem.tl_proposals + proposed_now,
+        tl_tally_sum=telem.tl_tally_sum + tally_at_decision,
+        tl_fast_decisions=telem.tl_fast_decisions + fast_decided,
+        tl_classic_decisions=telem.tl_classic_decisions + fb_decided,
+        tl_conflict_rounds=telem.tl_conflict_rounds + stalled,
+        tl_undecided_hist=telem.tl_undecided_hist
+        + ((bins == bucket[:, None]) & decided[:, None]),
+    )
+    if trace is None:
+        return round_state, decided_out, winner_mask, events, telem, None
+
+    # Round-trace ring: one record into slot cursor % R, as a one-hot select
+    # (no host index). The round and epoch stamps are the values the round
+    # started with; the undecided count is the updated one, as in JAX.
+    slot = trace.tr_cursor % cfg.trace
+    at = (torch.arange(cfg.trace, dtype=torch.int32, device=dev) == slot[:, None])
+
+    def put(lane, value):
+        return torch.where(at, value[:, None], lane)
+
+    trace = TraceRing(
+        tr_round=put(trace.tr_round, state.round_idx),
+        tr_epoch=put(trace.tr_epoch, state.config_epoch),
+        tr_active=put(trace.tr_active, active.flatten(1).sum(-1, dtype=torch.int32)),
+        tr_alerts=put(trace.tr_alerts, alerts_emitted),
+        tr_proposals=put(trace.tr_proposals, proposed_now.sum(-1, dtype=torch.int32)),
+        tr_tally=put(trace.tr_tally, tally_at_decision),
+        tr_path=put(trace.tr_path, fb_decided.to(torch.int32) * 2 + fast_decided),
+        tr_conflict=put(trace.tr_conflict, stalled.to(torch.int32)),
+        tr_undecided=put(trace.tr_undecided, rounds_undecided),
+        tr_cursor=trace.tr_cursor + 1,
+        tr_wraps=trace.tr_wraps + (slot == cfg.trace - 1),
+    )
+    return round_state, decided_out, winner_mask, events, telem, trace
 
 
 def apply_view_change_impl(cfg: EngineConfig, state: EngineState, winner_mask) -> EngineState:
@@ -452,29 +523,48 @@ def apply_view_change_impl(cfg: EngineConfig, state: EngineState, winner_mask) -
 
 
 def engine_step(
-    cfg: EngineConfig, state: EngineState, faults: FaultInputs
-) -> Tuple[EngineState, StepEvents, bool]:
+    cfg: EngineConfig,
+    state: EngineState,
+    faults: FaultInputs,
+    telem: Optional[TelemetryLanes] = None,
+    trace: Optional[TraceRing] = None,
+):
     """One cluster's full round including the view change when it decided.
-    Returns (state, events, decided)."""
-    round_state, decided, winner_mask, events = _compute_round(cfg, _one(state), _one(faults))
+    Returns (state, events, decided, telem, trace); the plane lanes are
+    ``None`` where none were given. Covers the JAX package's
+    ``engine_step``, ``engine_step_telem`` and ``engine_step_trace``."""
+    round_state, decided, winner_mask, events, telem, trace = _compute_round(
+        cfg, _one(state), _one(faults), telem=_one(telem), trace=_one(trace)
+    )
     if decided:
         round_state = apply_view_change_impl(cfg, round_state, winner_mask)
-    return _only(round_state), _only(events), decided
+    return _only(round_state), _only(events), decided, _only(telem), _only(trace)
 
 
-def run_to_decision(cfg: EngineConfig, state: EngineState, faults: FaultInputs, max_steps: int):
+def run_to_decision(
+    cfg: EngineConfig,
+    state: EngineState,
+    faults: FaultInputs,
+    max_steps: int,
+    telem: Optional[TelemetryLanes] = None,
+    trace: Optional[TraceRing] = None,
+):
     """One cluster's rounds until a view change commits or ``max_steps`` run
-    out. Returns (state, steps, decided, winner_mask)."""
-    state, faults = _one(state), _one(faults)
+    out. Returns (state, steps, decided, winner_mask, telem, trace). Covers
+    the JAX package's ``run_to_decision`` and its ``_telem`` / ``_trace``
+    twins."""
+    state, faults, telem, trace = _one(state), _one(faults), _one(telem), _one(trace)
     edge_masks = _edge_masks(cfg, state, faults)
     steps, decided = 0, False
     winner = torch.zeros((1, cfg.n), dtype=torch.bool, device=state.alive.device)
     while not decided and steps < max_steps:
-        state, decided, winner, _ = _compute_round(cfg, state, faults, edge_masks)
+        state, decided, winner, _, telem, trace = _compute_round(
+            cfg, state, faults, edge_masks, telem=telem, trace=trace
+        )
         steps += 1
     if decided:
         state = apply_view_change_impl(cfg, state, winner)
-    return _only(state), steps, decided, winner[0]
+    return _only(state), steps, decided, winner[0], _only(telem), _only(trace)
 
 
 def run_until_membership(
@@ -485,13 +575,18 @@ def run_until_membership(
     max_steps: int,
     max_cuts: int,
     min_cuts: int,
+    telem: Optional[TelemetryLanes] = None,
+    trace: Optional[TraceRing] = None,
 ):
     """One cluster's rounds through several view changes until the
     membership reaches ``target`` with at least ``min_cuts`` committed
     cuts, the step or cut budget runs out, or a convergence stalls
-    undecided. Returns (state, total_steps, cuts, resolved, sizes) where
-    ``sizes[i]`` is the membership after the i-th cut."""
-    state, faults = _one(state), _one(faults)
+    undecided. Returns (state, total_steps, cuts, resolved, sizes, telem,
+    trace) where ``sizes[i]`` is the membership after the i-th cut. The
+    plane lanes accumulate across the view changes. Covers the JAX
+    package's ``run_until_membership`` and its ``_telem`` / ``_trace``
+    twins."""
+    state, faults, telem, trace = _one(state), _one(faults), _one(telem), _one(trace)
     edge_masks = _edge_masks(cfg, state, faults)
     members = _host.read(state.n_members)[0]
     steps, cuts, stalled, sizes = 0, 0, False, []
@@ -503,7 +598,9 @@ def run_until_membership(
     ):
         decided = False
         while not decided and steps < max_steps:
-            state, decided, winner, _ = _compute_round(cfg, state, faults, edge_masks)
+            state, decided, winner, _, telem, trace = _compute_round(
+                cfg, state, faults, edge_masks, telem=telem, trace=trace
+            )
             steps += 1
         if decided:
             state = apply_view_change_impl(cfg, state, winner)
@@ -513,7 +610,54 @@ def run_until_membership(
             cuts += 1
         stalled = not decided
     resolved = members == target and cuts >= min_cuts
-    return _only(state), steps, cuts, resolved, sizes
+    return _only(state), steps, cuts, resolved, sizes, _only(telem), _only(trace)
+
+
+def telemetry_digest(telem: TelemetryLanes) -> torch.Tensor:
+    """``[t, ...]`` telemetry lanes reduced to ``[t, 18]`` int32: the
+    ``engine_telemetry.TELEMETRY_DIGEST_FIELDS`` scalars, then the
+    rounds-undecided histogram. One cluster is ``t = 1``. Covers the JAX
+    package's ``telemetry_digest`` and the fleet's vmap of it."""
+    active = telem.tl_active.flatten(1)
+    return torch.cat([
+        torch.stack([
+            telem.tl_rounds,
+            telem.tl_alerts,
+            active.sum(-1, dtype=torch.int32),
+            active.amax(-1),
+            telem.tl_invalidated.flatten(1).sum(-1, dtype=torch.int32),
+            telem.tl_proposals.sum(-1, dtype=torch.int32),
+            telem.tl_tally_sum,
+            telem.tl_fast_decisions,
+            telem.tl_classic_decisions,
+            telem.tl_conflict_rounds,
+        ], -1),
+        telem.tl_undecided_hist,
+    ], -1)
+
+
+def trace_digest(trace: TraceRing) -> torch.Tensor:
+    """``[t, ...]`` trace rings packed into ``[t, 2 + 9R]`` int32:
+    ``[tr_cursor, tr_wraps]``, then the nine ``[R]`` lanes in
+    ``engine_telemetry.TRACE_RECORD_FIELDS`` order. Covers the JAX
+    package's ``trace_digest`` and the fleet's vmap of it."""
+    return torch.cat([torch.stack([trace.tr_cursor, trace.tr_wraps], -1), *trace[:9]], -1)
+
+
+def sync_checksum(state: EngineState, faults: FaultInputs) -> torch.Tensor:
+    """One cluster's checksum over its state and fault lanes, as the JAX
+    package's ``sync_checksum`` computes it (every sum wraps modulo 2**32):
+    a 0-d int64 tensor holding the uint32 value. A stored uint32 lane sums
+    as its int32 bit patterns: each differs from its unsigned value by a
+    multiple of 2**32, so the sums agree modulo 2**32."""
+    total = sum(
+        lane.sum(dtype=torch.int64)
+        for lane in (
+            state.key_hi, state.key_lo, state.id_hi, state.id_lo, state.obs_idx,
+            state.fd_count, state.report_bits, state.alive, faults.crashed, faults.probe_fail,
+        )
+    )
+    return total & _u32.MASK
 
 
 class VirtualCluster:
@@ -528,6 +672,15 @@ class VirtualCluster:
         self.device = state.alive.device
         self.faults = FaultInputs.none(cfg, self.device)
         self.last_decided = False
+        # Device telemetry plane and trace ring (None when off). The host
+        # keeps decoded caches, zero-minted here and refreshed only by
+        # sync(), so reading them never touches the device.
+        self.telem = initial_telemetry(cfg, self.device) if cfg.telemetry else None
+        self.trace_ring = initial_trace(cfg, self.device) if cfg.trace else None
+        self._activity = (
+            engine_telemetry.zero_activity_summary(cfg.n, cfg.c) if cfg.telemetry else None
+        )
+        self._trace = engine_telemetry.zero_trace_summary(cfg.trace) if cfg.trace else None
 
     # -- construction ---------------------------------------------------
 
@@ -556,7 +709,9 @@ class VirtualCluster:
     ) -> "VirtualCluster":
         """Synthetic cluster with random 64-bit slot identities, drawn from
         numpy with the JAX package's seeds, so both packages build the same
-        state."""
+        state. ``telemetry=True`` carries the device telemetry plane and
+        ``trace=R`` (with telemetry) the ring of the last R rounds; read
+        them through :meth:`sync` and :attr:`activity` / :attr:`trace`."""
         n = n_slots if n_slots is not None else n_members
         if n < n_members:
             raise ValueError(f"n_slots ({n}) < n_members ({n_members})")
@@ -700,8 +855,39 @@ class VirtualCluster:
 
     def step(self) -> StepEvents:
         """One round (and the view change if it decided)."""
-        self.state, events, self.last_decided = engine_step(self.cfg, self.state, self.faults)
+        self.state, events, self.last_decided, self.telem, self.trace_ring = engine_step(
+            self.cfg, self.state, self.faults, self.telem, self.trace_ring
+        )
         return events
+
+    def sync(self) -> int:
+        """Wait for the cluster's queued work and return the JAX package's
+        checksum of the state and faults (one counted read). With the
+        telemetry plane on, then fetch its digest, and the ring's, in one
+        counted read each and refresh :attr:`activity` and :attr:`trace`."""
+        checksum = _host.read(sync_checksum(self.state, self.faults))
+        if self.telem is not None:
+            digest = _host.read(telemetry_digest(_one(self.telem))[0])
+            self._activity = engine_telemetry.activity_summary(digest, self.cfg.n, self.cfg.c)
+        if self.trace_ring is not None:
+            digest = _host.read(trace_digest(_one(self.trace_ring))[0])
+            self._trace = engine_telemetry.trace_summary(digest, self.cfg.trace)
+        return checksum
+
+    @property
+    def activity(self) -> Optional[dict]:
+        """The activity summary decoded at the last :meth:`sync` (a copy;
+        all zero before the first), or None with the plane off."""
+        return dict(self._activity) if self._activity is not None else None
+
+    @property
+    def trace(self) -> Optional[dict]:
+        """The ring decoded at the last :meth:`sync` (a copy, ``records``
+        oldest to newest with global round ordinals ``seq``), or None with
+        the ring off."""
+        if self._trace is None:
+            return None
+        return {**self._trace, "records": [dict(r) for r in self._trace["records"]]}
 
     def run_until_converged(self, max_steps: int = 64) -> Tuple[int, Optional[StepEvents]]:
         """Rounds until a view change commits; returns (rounds, events)."""
@@ -714,8 +900,8 @@ class VirtualCluster:
     def run_to_decision(self, max_steps: int = 64) -> Tuple[int, bool, torch.Tensor, int]:
         """Rounds until a view change commits; returns (rounds, decided,
         winner_mask, n_members)."""
-        self.state, steps, decided, winner = run_to_decision(
-            self.cfg, self.state, self.faults, max_steps
+        self.state, steps, decided, winner, self.telem, self.trace_ring = run_to_decision(
+            self.cfg, self.state, self.faults, max_steps, self.telem, self.trace_ring
         )
         return steps, decided, winner, _host.read(self.state.n_members)
 
@@ -726,8 +912,11 @@ class VirtualCluster:
         reaches ``target``; returns (rounds, cuts, resolved, sizes)."""
         if not 0 <= target <= self.cfg.n:
             raise ValueError(f"target must be in [0, {self.cfg.n}]: {target}")
-        self.state, steps, cuts, resolved, sizes = run_until_membership(
-            self.cfg, self.state, self.faults, target, max_steps, max_cuts, min_cuts
+        self.state, steps, cuts, resolved, sizes, self.telem, self.trace_ring = (
+            run_until_membership(
+                self.cfg, self.state, self.faults, target, max_steps, max_cuts, min_cuts,
+                self.telem, self.trace_ring,
+            )
         )
         return steps, cuts, resolved, tuple(sizes)
 

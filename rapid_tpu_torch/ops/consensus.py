@@ -66,3 +66,15 @@ def tally_candidates(
         max_count=max_count,
         total_votes=total,
     )
+
+
+def undecided_log2_bucket(rounds_undecided: torch.Tensor, buckets: int) -> torch.Tensor:
+    """Log2 histogram bucket of a decision's rounds-undecided count:
+    ``floor(log2(max(r, 1)))`` clamped into ``[0, buckets)``, elementwise,
+    as int32. The JAX version halves ``r`` ``buckets - 1`` times and counts
+    the nonzero results; the count of thresholds ``2, 4, ...,
+    2**(buckets - 1)`` that ``max(r, 1)`` reaches is the same number, in
+    one broadcast compare instead of a loop of launches."""
+    r = rounds_undecided.clamp(min=1)
+    shifts = torch.arange(1, buckets, dtype=r.dtype, device=r.device)
+    return ((r[..., None] >> shifts) > 0).sum(-1, dtype=torch.int32)

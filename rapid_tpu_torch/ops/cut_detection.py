@@ -1,5 +1,6 @@
 """Per-cohort watermark cut detection (port of
-``rapid_tpu/ops/cut_detection.py::cohort_watermark_pass``)."""
+``rapid_tpu/ops/cut_detection.py``: ``cohort_watermark_pass`` and the
+telemetry plane's ``telemetry_cut_masks``)."""
 
 from __future__ import annotations
 
@@ -75,3 +76,29 @@ def cohort_watermark_pass(
         propose,
         proposal_mask,
     )
+
+
+def telemetry_cut_masks(prev_bits, new_bits, final_bits, subject_mask, h, l):
+    """The telemetry plane's view of one :func:`cohort_watermark_pass`:
+    ``(active, invalidated)`` bool masks over ``[..., c, n]``, from the
+    pass's inputs and outputs only, so the pass is the same with the plane
+    on or off. ``subject_mask`` is ``[..., n]``; ``h``/``l`` are ints or
+    per-batch tensors.
+
+    ``active``: nonzero report bits, or a tally in the ``[l, h)`` flux band.
+    A nonzero word is active whatever its tally, and a zero word has tally
+    0, so the JAX version's popcount reduces to one per-batch test: a zero
+    word is active iff ``l <= 0 < h``.
+
+    ``invalidated``: bits in ``final_bits`` that the merge did not deliver
+    (absent from ``prev_bits | new_bits`` on a subject), which only the
+    implicit-invalidation pass sets (MultiNodeCutDetector.java:137-164)."""
+    active = final_bits != 0
+    zero_in_band = (l <= 0) & (h > 0)
+    if isinstance(zero_in_band, torch.Tensor):
+        active = active | per_batch(zero_in_band, active)
+    elif zero_in_band:
+        active = torch.ones_like(active)
+    delivered = torch.where(subject_mask[..., None, :], prev_bits | new_bits, 0)
+    invalidated = (final_bits & ~delivered) != 0
+    return active, invalidated

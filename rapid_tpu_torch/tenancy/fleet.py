@@ -1,7 +1,7 @@
 """The tenant fleet: B independent virtual clusters stepped together, one
 round of the engine for every tenant per call (port of
-``rapid_tpu/tenancy/fleet.py``; the telemetry and trace twins, the sharded
-mesh entry points and the serving seams are not ported).
+``rapid_tpu/tenancy/fleet.py`` with its telemetry and trace twins; the
+sharded mesh entry points and the serving seams are not ported).
 
 The JAX package vmaps its engine over a leading tenant axis. Here the round
 body itself works on ``[t, ...]`` lanes (``models/virtual_cluster.py``),
@@ -26,6 +26,13 @@ What vmap does to the single cluster's control flow, the port writes out:
   stop and keep their state, with one read of "any tenant still running"
   per round (the single-device driver).
 
+With ``telemetry`` (and ``trace``) on, every driver carries per-tenant
+plane lanes ``[t, ...]`` beside the state and gates them with the state's
+own mask: every tenant in :func:`fleet_step`, ``running`` in
+:func:`fleet_run_to_decision`, ``active`` in :func:`fleet_wave` (a coasting
+or quarantined tenant records nothing). Each tenant's lanes equal its own
+single cluster's.
+
 On a card the delivery kernel runs once per round for all tenants.
 """
 
@@ -42,6 +49,10 @@ from rapid_tpu_torch.models.state import (
     EngineState,
     FaultInputs,
     StepEvents,
+    TelemetryLanes,
+    TraceRing,
+    initial_telemetry,
+    initial_trace,
     map_lanes,
     select_lanes,
     stack_lanes,
@@ -52,6 +63,9 @@ from rapid_tpu_torch.models.virtual_cluster import (
     _edge_masks,
     apply_view_change_impl,
 )
+from rapid_tpu_torch.models.virtual_cluster import telemetry_digest as fleet_telemetry_digest
+from rapid_tpu_torch.models.virtual_cluster import trace_digest as fleet_trace_digest
+from rapid_tpu_torch.utils import engine_telemetry
 
 #: The EngineConfig fields that vary per tenant, as :class:`TenantKnobs`
 #: lanes. Every other field must be identical across a fleet's tenants, so
@@ -89,26 +103,52 @@ def _tenant_cfg(cfg: EngineConfig, knobs: TenantKnobs) -> EngineConfig:
     return cfg._replace(**knobs._asdict())
 
 
+def initial_fleet_telemetry(cfg: EngineConfig, tenants: int, device) -> TelemetryLanes:
+    """All-zero telemetry lanes for ``tenants`` clusters, ``[t, ...]``."""
+    return initial_telemetry(cfg, device, tenants)
+
+
+def initial_fleet_trace(cfg: EngineConfig, tenants: int, device) -> TraceRing:
+    """All-zero trace rings for ``tenants`` clusters, ``[t, ...]``."""
+    return initial_trace(cfg, device, tenants)
+
+
 def fleet_step(
-    cfg: EngineConfig, state: EngineState, faults: FaultInputs, knobs: TenantKnobs
-) -> Tuple[EngineState, StepEvents]:
+    cfg: EngineConfig,
+    state: EngineState,
+    faults: FaultInputs,
+    knobs: TenantKnobs,
+    telem: Optional[TelemetryLanes] = None,
+    trace: Optional[TraceRing] = None,
+):
     """One protocol round for every tenant, with each decided tenant's view
-    change applied. Events come back stacked (``[t]`` scalars, ``[t, n]``
-    winner masks)."""
+    change applied. Returns ``(state, events, telem, trace)``: events
+    stacked (``[t]`` scalars, ``[t, n]`` winner masks), and every tenant's
+    plane lanes advanced (``None`` where none were given), quarantined
+    tenants included, as the JAX fleet's batched step does."""
     tcfg = _tenant_cfg(cfg, knobs)
-    round_state, decided, winner, events = _compute_round(tcfg, state, faults, select=True)
+    round_state, decided, winner, events, telem, trace = _compute_round(
+        tcfg, state, faults, select=True, telem=telem, trace=trace
+    )
     committed = apply_view_change_impl(tcfg, round_state, winner)
-    return select_lanes(decided, committed, round_state), events
+    return select_lanes(decided, committed, round_state), events, telem, trace
 
 
 def fleet_run_to_decision(
-    cfg: EngineConfig, state: EngineState, faults: FaultInputs, knobs: TenantKnobs, max_steps: int
+    cfg: EngineConfig,
+    state: EngineState,
+    faults: FaultInputs,
+    knobs: TenantKnobs,
+    max_steps: int,
+    telem: Optional[TelemetryLanes] = None,
+    trace: Optional[TraceRing] = None,
 ):
     """Every tenant rounds to its own first view change (the batched while
     of ``run_to_decision``): a tenant that decided, or spent
-    ``max_steps``, stops stepping and keeps its state, and the view changes
-    apply per tenant after the loop. One host read per round. Returns
-    ``(state, steps[t], decided[t], winner[t, n])``."""
+    ``max_steps``, stops stepping and keeps its state and plane lanes, and
+    the view changes apply per tenant after the loop. One host read per
+    round. Returns ``(state, steps[t], decided[t], winner[t, n], telem,
+    trace)``."""
     tcfg = _tenant_cfg(cfg, knobs)
     t, n = state.alive.shape
     dev = state.alive.device
@@ -120,13 +160,17 @@ def fleet_run_to_decision(
         running = ~decided & (steps < max_steps)
         if not _host.read(running.any()):
             break
-        round_state, now, won, _ = _compute_round(tcfg, state, faults, edge_masks, select=True)
+        round_state, now, won, _, round_telem, round_trace = _compute_round(
+            tcfg, state, faults, edge_masks, select=True, telem=telem, trace=trace
+        )
         state = select_lanes(running, round_state, state)
+        telem = select_lanes(running, round_telem, telem)
+        trace = select_lanes(running, round_trace, trace)
         steps = steps + running.to(torch.int32)
         decided = torch.where(running, now, decided)
         winner = torch.where(running[:, None], won, winner)
     committed = apply_view_change_impl(tcfg, state, winner)
-    return select_lanes(decided, committed, state), steps, decided, winner
+    return select_lanes(decided, committed, state), steps, decided, winner, telem, trace
 
 
 def fleet_wave(
@@ -138,6 +182,8 @@ def fleet_wave(
     max_steps: int,
     max_cuts: int,
     min_cuts: torch.Tensor,
+    telem: Optional[TelemetryLanes] = None,
+    trace: Optional[TraceRing] = None,
 ):
     """The fleet's whole-wave loop: every tenant runs convergences through
     as many view changes as it needs to reach its own ``target`` membership
@@ -146,10 +192,12 @@ def fleet_wave(
     select-applied and finished tenants frozen in place, with no host read.
     Per tenant the same ``_compute_round`` / ``apply_view_change_impl``
     sequence runs on the same values as the single cluster's nested loop.
+    The plane lanes are frozen with the state, by the same ``active`` mask.
 
     ``target`` and ``min_cuts`` are ``[t]`` int32 on the state's device.
-    Returns ``(state, steps[t], cuts[t], resolved[t], sizes[t, max_cuts])``
-    as device tensors, ``sizes`` -1 beyond each tenant's cuts."""
+    Returns ``(state, steps[t], cuts[t], resolved[t], sizes[t, max_cuts],
+    telem, trace)`` as device tensors, ``sizes`` -1 beyond each tenant's
+    cuts."""
     tcfg = _tenant_cfg(cfg, knobs)
     t = state.alive.shape[0]
     dev = state.alive.device
@@ -162,10 +210,14 @@ def fleet_wave(
     done = (state.n_members == target) & (min_cuts <= 0)
     for _ in range(max_steps):
         active = ~done & (steps < max_steps)
-        round_state, decided, winner, _ = _compute_round(tcfg, state, faults, select=True)
+        round_state, decided, winner, _, round_telem, round_trace = _compute_round(
+            tcfg, state, faults, select=True, telem=telem, trace=trace
+        )
         committed = apply_view_change_impl(tcfg, round_state, winner)
         commit = active & decided
         state = select_lanes(commit, committed, select_lanes(active, round_state, state))
+        telem = select_lanes(active, round_telem, telem)
+        trace = select_lanes(active, round_trace, trace)
         steps = steps + active.to(torch.int32)
         # sizes[cuts] = members where a cut committed; a slot past max_cuts
         # matches no column, so that write is dropped, as JAX drops it.
@@ -175,7 +227,7 @@ def fleet_wave(
         resolved = (state.n_members == target) & (cuts >= min_cuts)
         done = done | (commit & resolved) | (cuts >= max_cuts)
     resolved = (state.n_members == target) & (cuts >= min_cuts)
-    return state, steps, cuts, resolved, sizes
+    return state, steps, cuts, resolved, sizes, telem, trace
 
 
 def tenant_health(cfg: EngineConfig, state: EngineState) -> torch.Tensor:
@@ -234,6 +286,19 @@ class TenantFleet:
         # tenant -> raw frozen membership captured at quarantine time (the
         # per-tenant freeze-lane inputs; see quarantine()).
         self._quarantined: dict = {}
+        # Per-tenant telemetry plane and trace ring (None when off), with
+        # the host caches zero-minted here and refreshed only by sync() and
+        # health_scan().
+        self.telem = initial_fleet_telemetry(cfg, b, self.device) if cfg.telemetry else None
+        self.trace_ring = initial_fleet_trace(cfg, b, self.device) if cfg.trace else None
+        self._activity = (
+            [engine_telemetry.zero_activity_summary(cfg.n, cfg.c) for _ in range(b)]
+            if cfg.telemetry else None
+        )
+        self._trace = (
+            [engine_telemetry.zero_trace_summary(cfg.trace) for _ in range(b)]
+            if cfg.trace else None
+        )
 
     # -- construction ---------------------------------------------------
 
@@ -271,12 +336,19 @@ class TenantFleet:
                     f"tenant {i}: fd_threshold ({cfg.fd_threshold}) cannot "
                     f"exceed fd_window ({cfg.fd_window})"
                 )
-        return cls(
+        fleet = cls(
             base,
             stack_lanes([vc.state for vc in clusters]),
             stack_lanes([vc.faults for vc in clusters]),
             TenantKnobs.from_configs(cfgs, clusters[0].device),
         )
+        # Each tenant's plane lanes come along: a fleet stacked mid-run
+        # keeps its tenants' activity and round history.
+        if base.telemetry:
+            fleet.telem = stack_lanes([vc.telem for vc in clusters])
+        if base.trace:
+            fleet.trace_ring = stack_lanes([vc.trace_ring for vc in clusters])
+        return fleet
 
     @classmethod
     def create(
@@ -316,15 +388,17 @@ class TenantFleet:
     def step(self) -> StepEvents:
         """One protocol round for every tenant; the stacked events stay on
         the device (reading them is the caller's choice)."""
-        self.state, events = fleet_step(self.cfg, self.state, self.faults, self.knobs)
+        self.state, events, self.telem, self.trace_ring = fleet_step(
+            self.cfg, self.state, self.faults, self.knobs, self.telem, self.trace_ring
+        )
         return events
 
     def run_to_decision(self, max_steps: int = 64):
         """Every tenant runs to its own first view change; returns
         ``(rounds[t], decided[t], winner[t, n] on the device, members[t])``
         with one packed read of the observations."""
-        self.state, steps, decided, winner = fleet_run_to_decision(
-            self.cfg, self.state, self.faults, self.knobs, max_steps
+        self.state, steps, decided, winner, self.telem, self.trace_ring = fleet_run_to_decision(
+            self.cfg, self.state, self.faults, self.knobs, max_steps, self.telem, self.trace_ring
         )
         obs = np.asarray(
             _host.read(torch.stack([steps, decided.to(torch.int32), self.state.n_members]))
@@ -354,10 +428,10 @@ class TenantFleet:
         bad = targets[serving]
         if bad.size and (bad.min() < 0 or bad.max() > self.cfg.n):
             raise ValueError(f"targets must be in [0, {self.cfg.n}]: {targets.tolist()}")
-        self.state, steps, cuts, resolved, sizes = fleet_wave(
+        self.state, steps, cuts, resolved, sizes, self.telem, self.trace_ring = fleet_wave(
             self.cfg, self.state, self.faults, self.knobs,
             torch.from_numpy(targets).to(self.device), int(max_steps), int(max_cuts),
-            torch.from_numpy(min_cuts).to(self.device),
+            torch.from_numpy(min_cuts).to(self.device), self.telem, self.trace_ring,
         )
         obs = np.asarray(
             _host.read(torch.cat([steps, cuts, resolved.to(torch.int32), sizes.reshape(-1)]))
@@ -368,17 +442,57 @@ class TenantFleet:
         )
 
     def sync(self) -> None:
-        """Wait for all queued work on the fleet's device."""
+        """Wait for all queued work on the fleet's device, then refresh the
+        plane caches (:attr:`activity`, :attr:`tenant_activity`,
+        :attr:`tenant_trace`)."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        self._refresh_activity()
+
+    def _refresh_activity(self) -> None:
+        """Fetch the stacked digests, one counted read each (``[t, 18]``,
+        and ``[t, 2 + 9R]`` for the rings), and decode every tenant's."""
+        if self.telem is not None:
+            digests = _host.read(fleet_telemetry_digest(self.telem))
+            self._activity = [
+                engine_telemetry.activity_summary(d, self.cfg.n, self.cfg.c) for d in digests
+            ]
+        if self.trace_ring is not None:
+            digests = _host.read(fleet_trace_digest(self.trace_ring))
+            self._trace = [engine_telemetry.trace_summary(d, self.cfg.trace) for d in digests]
+
+    @property
+    def activity(self) -> Optional[dict]:
+        """The fleet-wide activity rollup of the last refresh (counters
+        summed, peaks maxed over tenants), or None with the plane off."""
+        if self._activity is None:
+            return None
+        return engine_telemetry.aggregate_activity(self._activity, self.cfg.n, self.cfg.c)
+
+    @property
+    def tenant_activity(self) -> Optional[List[dict]]:
+        """Per-tenant activity summaries (copies) of the last refresh, or
+        None with the plane off."""
+        return None if self._activity is None else [dict(a) for a in self._activity]
+
+    @property
+    def tenant_trace(self) -> Optional[List[dict]]:
+        """Per-tenant decoded rings (copies, records included) of the last
+        refresh, or None with the ring off."""
+        if self._trace is None:
+            return None
+        return [{**tr, "records": [dict(r) for r in tr["records"]]} for tr in self._trace]
 
     # -- health & quarantine ----------------------------------------------
 
     def health_scan(self) -> np.ndarray:
         """Run the device-side health reduction (:func:`tenant_health`) over
         every tenant and read the ``[t]`` result once; returns the POISONED
-        mask (True = invariants violated)."""
-        return ~_np(tenant_health(self.cfg, self.state))
+        mask (True = invariants violated). Refreshes the plane caches, as
+        :meth:`sync` does."""
+        poisoned = ~_np(tenant_health(self.cfg, self.state))
+        self._refresh_activity()
+        return poisoned
 
     def tenant_health_report(self, t: int) -> List[str]:
         """Host-side diagnosis of ONE tenant: the named violations behind a

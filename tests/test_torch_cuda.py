@@ -3,7 +3,8 @@
 The delivery kernel (``rapid_tpu_torch/csrc/delivery.cu``) against its plain
 PyTorch version, bit for bit, for one cluster and with a tenant axis, and
 the whole engine and a tenant fleet on the card against the same on the
-CPU, lane by lane. Every test needs a CUDA card and ``nvcc``
+CPU, lane by lane, with and without the telemetry plane and trace ring.
+Every test needs a CUDA card and ``nvcc``
 and skips without them. On a GPU machine, from the root of a checkout
 (``--noconftest`` because the suite's conftest configures JAX, which the
 port does not need)::
@@ -15,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import churn_cluster, delivery_inputs, fleet_clusters, resolve
+from chip_smoke import churn_cluster, delivery_inputs, fleet_clusters, resolve, sync_checked_wave
 from rapid_tpu_torch import _u32
 from rapid_tpu_torch.convert import state_to_numpy
 from rapid_tpu_torch.ops.kernels import delivery_new_bits, delivery_new_bits_ref
@@ -109,3 +110,39 @@ def test_fleet_on_card_matches_cpu_lane_by_lane(card):
     assert all(results["cuda"][2]), results
     for field, want in lanes["cpu"].items():
         np.testing.assert_array_equal(lanes["cuda"][field], want, err_msg=field)
+
+
+@pytest.mark.cuda
+def test_telemetry_planes_on_card_match_cpu(card):
+    # The churn of test_engine_on_card_matches_cpu_lane_by_lane with the
+    # plane and a 6-round ring (wrapped by the quiet rounds after it).
+    n, n_churn = 512, 12
+    lanes, results = {}, {}
+    for device in (card, torch.device("cpu")):
+        vc, _ = churn_cluster(n, n_churn, n_churn, 40, 3, device, telemetry=True, trace=6)
+        result = resolve(vc, n)
+        for _ in range(6):
+            vc.step()
+        results[device.type] = (result, vc.sync(), vc.activity, vc.trace)
+        lanes[device.type] = {**state_to_numpy(vc.state), **state_to_numpy(vc.telem),
+                              **state_to_numpy(vc.trace_ring)}
+    assert results["cuda"] == results["cpu"]
+    assert results["cuda"][3]["wraps"] >= 1
+    for field, want in lanes["cpu"].items():
+        np.testing.assert_array_equal(lanes["cuda"][field], want, err_msg=field)
+
+
+@pytest.mark.cuda
+def test_fleet_wave_with_planes_makes_no_synchronizing_call(card):
+    from rapid_tpu_torch.tenancy import TenantFleet
+
+    knobs, wave = ((9, 4), (8, 3), (7, 2)), dict(max_steps=48, max_cuts=4, min_cuts=1)
+    clusters, targets = fleet_clusters(6, 128, 4, 40, 11, card, knobs, telemetry=True, trace=8)
+    fleet = TenantFleet.from_clusters(clusters)
+    want = [r.tolist() for r in fleet.run_until_membership(targets, **wave)]
+    clusters, _ = fleet_clusters(6, 128, 4, 40, 11, card, knobs, telemetry=True, trace=8)
+    out = sync_checked_wave(TenantFleet.from_clusters(clusters), targets, **wave)
+    assert [x.tolist() for x in out[1:5]] == want
+    for got, ref in ((out[5], fleet.telem), (out[6], fleet.trace_ring)):
+        for field, value in state_to_numpy(ref).items():
+            np.testing.assert_array_equal(state_to_numpy(got)[field], value, err_msg=field)

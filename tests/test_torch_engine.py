@@ -223,9 +223,12 @@ def test_bench_shaped_mini_churn_through_run_until_membership():
 
 
 def test_unported_options_raise():
-    for option in (dict(compact=True), dict(telemetry=True), dict(trace=4, telemetry=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TorchCluster.create(16, device="cpu", **option)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TorchCluster.create(16, device="cpu", compact=True)
+    with pytest.raises(ValueError, match="requires telemetry"):
+        TorchCluster.create(16, device="cpu", trace=4, telemetry=False)
+    with pytest.raises(ValueError, match=">= 0"):
+        TorchCluster.create(16, device="cpu", trace=-1, telemetry=True)
     with pytest.raises(ValueError):
         TorchCluster.create(16, delivery_spread=1, delivery_prob_permille=1001, device="cpu")
 
