@@ -10,8 +10,9 @@ exits non-zero:
    started together) and report the build time and ptxas's register report;
 2. kernel: the delivery kernel against its plain PyTorch version on the
    card, bit for bit, at the headline shape (64 cohorts, K=10, n=102,500) in
-   all three delay modes and at ragged small shapes, with timings and the
-   kernel's bound;
+   all three delay modes and at ragged small shapes (the generic-K instance
+   included), each mode timed warm (one input set) and cold (input sets
+   taken in turn, more bytes than L2 holds), beside its bound;
 3. engine: one seeded churn at N=4,096 with C=40 on the card and on the
    CPU; every lane of the final state and every returned count must match;
 4. main path: the 5%-churn resolution at N=100,000 (``bench.py``'s recipe:
@@ -23,10 +24,9 @@ exits non-zero:
    then one profiled sample of each;
 5. scale point: ``bench.py``'s crash-1% point at N=1,000,000 (8 cohorts,
    10,000 crashes, one ``run_to_decision``), a warm-up and one timed run;
-6. kernel_fleet: the delivery kernel with a tenant axis against its plain
-   version, bit for bit, at the fleet shape (256 tenants, 8 cohorts, K=10,
-   n=1,044) with distinct per-tenant epochs in all three delay modes, and
-   at a ragged shape, with timings, the bound and the SM clock;
+6. kernel_fleet: phase 2 with a tenant axis, at the fleet shape (256
+   tenants, 8 cohorts, K=10, n=1,044) with distinct per-tenant epochs, and
+   at ragged fleet shapes (c=1,024 among them);
 7. fleet_engine: a fleet of 6 tenants (N=256, 262 slots, 40 cohorts, the
    three ``bench.py`` families, a knob mix) through ``run_until_membership``
    on the card and on the CPU: every stacked lane and result must match,
@@ -45,6 +45,20 @@ exits non-zero:
    plane and a 16-round ring, card against CPU, each tenant against its own
    single cluster, and its wave loop under the sync check.
 
+10. kernel_paths: the delivery inputs of every round of phase 4's warm-up
+   churn and of phase 8's warm-up wave, captured by wrapping the engine's
+   call (``rapid_tpu_torch.models.virtual_cluster.delivery_new_bits``):
+   each round bit for bit against the plain version, and one pass over the
+   rounds in path order timed beside the sum of their bounds;
+11. kernel_ab, only with ``--parent DIR``: the delivery kernel of the
+   checkout at DIR built beside this one and timed against it in turns
+   (parent, change, change, parent) on phases 2, 6 and 10's inputs.
+
+A kernel's bound (``delivery_bound``) is the larger of its bytes (each
+input once, the output once) over the HBM rate and the delay draws its
+inputs need (unblocked edges with ``0 <= age < spread``) times the
+operations of one draw over the int32 issue rate.
+
 The delivery kernel's launch count is zeroed just before each of the
 paths 4, 5 and 8 and read just after. Then the kernels line, the card's
 name and power limit from ``nvidia-smi``, and as the last line
@@ -53,7 +67,11 @@ name and power limit from ``nvidia-smi``, and as the last line
 
 from __future__ import annotations
 
+import argparse
+import contextlib
+import functools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -68,6 +86,11 @@ import torch
 # peak is a quarter of that figure.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 4
+
+# The three delay modes, (spread, permille): none, uniform (the paths'), gated.
+DELAY_MODES = ((0, 1000), (2, 1000), (3, 300))
+# Bytes of input sets a cold timing rotates through: over twice the 50 MB L2.
+COLD_BYTES = 120e6
 
 HEADLINE = dict(n=100_000, n_join=2_500, n_crash=2_500, k=10, cohorts=64, spread=2)
 TIMED_SAMPLES = 5  # per side of the plane-on / plane-off comparison
@@ -94,19 +117,37 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def cuda_ms(fn, reps=30, warmup=5, runs=3):
-    """Milliseconds of one call of ``fn`` on the card: after ``warmup``
-    calls, the median over ``runs`` of one pair of CUDA events around
-    ``reps`` calls back to back, divided by ``reps``. Queued calls keep the
-    device busy, so a short kernel's launch gap does not count."""
-    for _ in range(warmup):
-        fn()
+def cuda_ms(fn, reps=30, warmup=5, runs=3, graph=True):
+    """Milliseconds of one call on the card: after ``warmup`` calls, the
+    median over ``runs`` of one pair of CUDA events around ``reps`` calls
+    back to back, divided by ``reps``. With ``graph`` the ``reps`` calls are
+    captured once as a CUDA graph and the events time its replays, so the
+    host's cost of a call (the wrapper's checks and the launch, tens of
+    microseconds) does not hide a kernel that takes less; without it the
+    calls are issued from the host each time. ``fn`` is one callable, or a
+    list of callables taken in turn (input sets rotated, so that each call
+    finds its inputs out of L2 when the sets hold more bytes than L2)."""
+    calls = list(fn) if isinstance(fn, (list, tuple)) else [fn]
+
+    def issue():
+        for i in range(reps):
+            calls[i % len(calls)]()
+
+    for i in range(warmup):
+        calls[i % len(calls)]()
+    run = issue
+    if graph:
+        torch.cuda.synchronize()
+        captured = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(captured):
+            issue()
+        run = captured.replay
+        run()
     times = []
     for _ in range(runs):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(reps):
-            fn()
+        run()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
@@ -114,28 +155,53 @@ def cuda_ms(fn, reps=30, warmup=5, runs=3):
 
 
 def delivery_ops_per_draw(spread, permille):
-    """Integer operations of one (cohort, slot, ring) draw, counted from
-    csrc/delivery.cu: the blocked-bit test, age compare and accumulate (7);
-    plus, when delays are drawn, the ring salt (2), a mix32 (8) and a modulus
-    (1); plus, in the gated mode, the second stream's xor, mix32, modulus and
-    compare (11) and the magnitude's add and select (2)."""
-    ops = 7
-    if spread > 0:
-        ops += 11
-        if permille < 1000:
-            ops += 13
-    return ops
+    """Integer operations of one needed delay draw, counted from
+    csrc/delivery.cu: the ring salt (2), a mix32 (8) and a modulus (1); in
+    the gated mode also the second stream's xor, mix32, modulus and compare
+    (11) and the magnitude's add and select (2). None are drawn when every
+    delay is 0."""
+    if spread == 0:
+        return 0
+    return 11 if permille >= 1000 else 24
 
 
-def delivery_bound(c, k, n, spread, permille, t=1):
-    """(bound_ms, bound_by) of one delivery call over ``t`` tenants: each
-    input read once, the output written once, against the operations its
-    draws make."""
-    w = (c + 31) // 32
-    nbytes = 4 * t * (w * k * n + k * n + 1 + c * n)
-    ops = t * c * n * k * delivery_ops_per_draw(spread, permille)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+def delivery_needed_draws(blocked, age, k, c, spread):
+    """Delay draws these inputs need, counted with torch ops on their
+    device: unblocked (tenant, cohort, slot, ring) edges with ``0 <= age <
+    spread``. Below 0 an edge is not delivered whatever the draw; at or
+    above ``spread`` (the largest delay) it is delivered iff unblocked."""
+    from rapid_tpu_torch import _u32
+    from rapid_tpu_torch.ops.kernels import popcount32
+
+    if spread == 0:
+        return 0
+    if age.dim() == 2:
+        blocked, age = blocked[None], age[None]
+    t, _, n = age.shape
+    words = blocked.reshape(t, -1, k, n)
+    pending = ((age >= 0) & (age < spread)).to(torch.int64)
+    total = 0
+    for wi in range(words.shape[1]):
+        cohort_bits = (1 << min(32, c - 32 * wi)) - 1
+        unblocked = popcount32((_u32.widen(words[:, wi]) ^ _u32.MASK) & cohort_bits)
+        total += int((unblocked * pending).sum())
+    return total
+
+
+def delivery_bound(blocked, age, epoch, k, c, spread, permille):
+    """(bound_ms, bound_by, needed draws) of one delivery call on these
+    inputs (one cluster or a fleet). Bytes: each input read once and the
+    ``[t, c, n]`` output written once. Operations: the draws these inputs
+    need (:func:`delivery_needed_draws`) times the operations of one draw
+    (:func:`delivery_ops_per_draw`); the per-edge test is not counted, since
+    a word-wide kernel forms 32 outputs with a few operations. The larger of
+    the two times, at the H100's HBM rate and int32 issue rate."""
+    n = age.shape[-1]
+    nbytes = 4 * (blocked.numel() + age.numel() + epoch.numel() + epoch.numel() * c * n)
+    draws = delivery_needed_draws(blocked, age, k, c, spread)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = draws * delivery_ops_per_draw(spread, permille) / INT32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), draws
 
 
 def delivery_inputs(c, k, n, seed, dev, t=None):
@@ -158,36 +224,100 @@ def delivery_inputs(c, k, n, seed, dev, t=None):
     )
 
 
-def phase_kernel(dev):
+def skip_edge_inputs(kind, c, k, n, spread, seed, dev, t=None):
+    """:func:`delivery_inputs` moved to the edges of the kernel's skips.
+    ``edges``: ages -2^30, -1, 0, spread - 1, spread, spread + 1 in turn
+    along tenants, rings and slots; ``all_blocked`` / ``none_blocked``: the
+    same ages with every or no cohort blocked; ``all_pending``: every age in
+    ``[0, spread)`` (needs spread >= 1); ``misaligned``: the seeded inputs
+    one element past a 16-byte boundary."""
+    blocked, age, epoch = delivery_inputs(c, k, n, seed, dev, t=t)
+    if kind == "misaligned":
+        def shifted(x):
+            buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+            buf[1:] = x.reshape(-1)
+            return buf[1:].view(x.shape)
+        return shifted(blocked), shifted(age), epoch
+    if kind == "all_pending":
+        rng = np.random.default_rng(seed)
+        age = torch.from_numpy(rng.integers(0, spread, size=age.shape).astype(np.int32)).to(dev)
+        return blocked, age, epoch
+    edges = torch.tensor([-(1 << 30), -1, 0, spread - 1, spread, spread + 1], dtype=torch.int32)
+    lead = age.shape[:-2]
+    pos = torch.arange(k)[:, None] + torch.arange(n)[None, :]
+    if lead:
+        pos = pos + torch.arange(lead[0])[:, None, None]
+    age = edges[pos % len(edges)].to(dev).contiguous()
+    if kind == "all_blocked":
+        blocked = torch.full_like(blocked, -1)
+    elif kind == "none_blocked":
+        blocked = torch.zeros_like(blocked)
+    return blocked, age, epoch
+
+
+def kernel_modes(dev, c, k, n, seed_base, t=None):
+    """The delivery kernel against its plain version, bit for bit, at one
+    shape in the three delay modes, each timed warm (one input set) and
+    cold (``COLD_BYTES`` of input sets taken in turn), beside its bound.
+    Returns (the modes' JSON, each mode's list of argument tuples)."""
     from rapid_tpu_torch import _u32
     from rapid_tpu_torch.ops.kernels import delivery_new_bits, delivery_new_bits_ref
 
-    k, n, c = HEADLINE["k"], HEADLINE["n"] + HEADLINE["n_join"], HEADLINE["cohorts"]
-    modes = []
-    for spread, permille in ((0, 1000), (2, 1000), (3, 300)):
-        blocked, age, epoch = delivery_inputs(c, k, n, spread * 10 + 1, dev)
-        args = (blocked, age, epoch, k, c, spread, permille)
-        got, want = delivery_new_bits(*args), delivery_new_bits_ref(*args)
+    modes, inputs = [], []
+    for spread, permille in DELAY_MODES:
+        seed = spread * 10 + seed_base
+        first = delivery_inputs(c, k, n, seed, dev, t=t)
+        nbytes = 4 * (sum(x.numel() for x in first) + (t or 1) * c * n)
+        sets = [first] + [delivery_inputs(c, k, n, seed + 1000 * i, dev, t=t)
+                          for i in range(1, math.ceil(COLD_BYTES / nbytes))]
+        args = [(*inp, k, c, spread, permille) for inp in sets]
+        got, want = delivery_new_bits(*args[0]), delivery_new_bits_ref(*args[0])
         torch.cuda.synchronize()
         err = int((_u32.widen(got) - _u32.widen(want)).abs().max())
-        check(torch.equal(got, want), f"delivery kernel differs (spread={spread}, permille={permille})")
-        bound_ms, bound_by = delivery_bound(c, k, n, spread, permille)
+        check(torch.equal(got, want),
+              f"delivery kernel differs (t={t}, c={c}, n={n}, spread={spread}, permille={permille})")
+        bound_ms, bound_by, draws = delivery_bound(*args[0])
+        cold_bound_ms = statistics.mean(delivery_bound(*a)[0] for a in args)
+        clocks_before = smi("clocks.sm,clocks.max.sm")
+        ms = cuda_ms(lambda: delivery_new_bits(*args[0]))
+        cold_ms = cuda_ms([functools.partial(delivery_new_bits, *a) for a in args])
         modes.append(dict(
-            spread=spread, permille=permille, max_abs_err=err,
-            ms=cuda_ms(lambda: delivery_new_bits(*args)),
-            plain_ms=cuda_ms(lambda: delivery_new_bits_ref(*args), reps=20),
-            bound_ms=bound_ms, bound_by=bound_by,
+            spread=spread, permille=permille, max_abs_err=err, ms=ms, cold_ms=cold_ms,
+            plain_ms=cuda_ms(lambda: delivery_new_bits_ref(*args[0]), reps=20, graph=False),
+            bound_ms=bound_ms, bound_by=bound_by, share_of_bound=bound_ms / ms,
+            cold_sets=len(args), cold_bound_ms=cold_bound_ms,
+            cold_share_of_bound=cold_bound_ms / cold_ms,
+            needed_draws=draws, needed_draw_share=draws / ((t or 1) * c * n * k),
+            sm_clock_before_after=[clocks_before, smi("clocks.sm,clocks.max.sm")],
         ))
-    ragged = []
-    for rc, rn, spread, permille in ((33, 1000, 1, 250), (5, 37, 2, 1000), (64, 129, 3, 300)):
-        blocked, age, epoch = delivery_inputs(rc, k, rn, rn, dev)
-        args = (blocked, age, epoch, k, rc, spread, permille)
-        same = torch.equal(delivery_new_bits(*args), delivery_new_bits_ref(*args))
-        check(same, f"delivery kernel differs at c={rc} n={rn}")
-        ragged.append([rc, rn, spread, permille])
+        inputs.append(args)
+    return modes, inputs
+
+
+def check_ragged(dev, cases):
+    """The kernel equals its plain version at shapes off the paths' grid and
+    at its skip edges: (t or None, c, k, n, spread, permille, kind of
+    :func:`skip_edge_inputs`) each."""
+    from rapid_tpu_torch.ops.kernels import delivery_new_bits, delivery_new_bits_ref
+
+    for t, c, k, n, spread, permille, kind in cases:
+        args = (*skip_edge_inputs(kind, c, k, n, spread, n + k, dev, t=t), k, c, spread, permille)
+        check(torch.equal(delivery_new_bits(*args), delivery_new_bits_ref(*args)),
+              f"delivery kernel differs at t={t} c={c} k={k} n={n} spread={spread}")
+    return [list(case) for case in cases]
+
+
+def phase_kernel(dev):
+    k, n, c = HEADLINE["k"], HEADLINE["n"] + HEADLINE["n_join"], HEADLINE["cohorts"]
+    modes, inputs = kernel_modes(dev, c, k, n, 1)
+    ragged = check_ragged(dev, (
+        (None, 33, 10, 1000, 1, 250, "edges"), (None, 5, 10, 37, 2, 1000, "all_pending"),
+        (None, 64, 10, 129, 3, 300, "edges"), (None, 40, 17, 130, 2, 1000, "edges"),
+        (None, 64, 3, 1002, 0, 1000, "none_blocked"), (None, 64, 10, 1000, 2, 1000, "misaligned"),
+    ))
     emit({"phase": "kernel", "shape": {"c": c, "k": k, "n": n}, "modes": modes,
           "ragged_bit_exact": ragged})
-    return modes
+    return modes, inputs
 
 
 def churn_cluster(n, n_join, n_crash, cohorts, seed, device, **planes):
@@ -232,7 +362,32 @@ def phase_engine(dev):
           "sizes": list(sizes), "lanes_bit_exact": len(lanes["cpu"])})
 
 
-def phase_main_path(dev):
+@contextlib.contextmanager
+def capturing(captured):
+    """A context in which every delivery call of the engine also appends a
+    copy of its arguments to ``captured`` (nothing when it is None). The
+    engine's own call still runs, and counts, as it does without it."""
+    from rapid_tpu_torch.models import virtual_cluster
+
+    real = virtual_cluster.delivery_new_bits
+    if captured is None:
+        yield
+        return
+
+    def capture(blocked, age, epoch, *params):
+        captured.append((blocked.clone(), age.clone(), epoch.clone(), *params))
+        return real(blocked, age, epoch, *params)
+
+    virtual_cluster.delivery_new_bits = capture
+    try:
+        yield
+    finally:
+        virtual_cluster.delivery_new_bits = real
+
+
+def phase_main_path(dev, captured=None):
+    """Phase 4. ``captured``: a list that receives the delivery inputs of
+    every round of the warm-up churn (planes off)."""
     from rapid_tpu_torch import _host
     from rapid_tpu_torch.ops.kernels import delivery_new_bits
 
@@ -253,8 +408,10 @@ def phase_main_path(dev):
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         launches0, reads0 = delivery_new_bits.launches, _host.read.count
+        capture = capturing(captured if (seed, side) == order[0] else None)
         start = time.perf_counter()
-        rounds, cuts, resolved, sizes = resolve(vc, n)
+        with capture:
+            rounds, cuts, resolved, sizes = resolve(vc, n)
         torch.cuda.synchronize(dev)
         ms = (time.perf_counter() - start) * 1e3
         reads = _host.read.count - reads0
@@ -381,39 +538,16 @@ def phase_scale_point(dev):
     return launches
 
 
-def phase_kernel_fleet(dev, headline_modes):
-    from rapid_tpu_torch import _u32
-    from rapid_tpu_torch.ops.kernels import delivery_new_bits, delivery_new_bits_ref
-
+def phase_kernel_fleet(dev):
     t, c, k, n = FLEET["tenants"], FLEET["cohorts"], FLEET["k"], FLEET["n"] + FLEET["n_extra"]
-    modes = []
-    for spread, permille in ((0, 1000), (2, 1000), (3, 300)):
-        blocked, age, epoch = delivery_inputs(c, k, n, spread * 10 + 2, dev, t=t)
-        args = (blocked, age, epoch, k, c, spread, permille)
-        got, want = delivery_new_bits(*args), delivery_new_bits_ref(*args)
-        torch.cuda.synchronize()
-        err = int((_u32.widen(got) - _u32.widen(want)).abs().max())
-        check(torch.equal(got, want),
-              f"batched delivery kernel differs (spread={spread}, permille={permille})")
-        bound_ms, bound_by = delivery_bound(c, k, n, spread, permille, t=t)
-        headline = next(m for m in headline_modes if m["spread"] == spread)
-        clocks_before = smi("clocks.sm,clocks.max.sm")
-        ms = cuda_ms(lambda: delivery_new_bits(*args))
-        modes.append(dict(
-            spread=spread, permille=permille, max_abs_err=err, ms=ms,
-            plain_ms=cuda_ms(lambda: delivery_new_bits_ref(*args), reps=20),
-            bound_ms=bound_ms, bound_by=bound_by, share_of_bound=bound_ms / ms,
-            sm_clock_before_after=[clocks_before, smi("clocks.sm,clocks.max.sm")],
-            headline_ms=headline["ms"], headline_bound_ms=headline["bound_ms"],
-        ))
-    rt, rc, rn = 3, 40, 77
-    blocked, age, epoch = delivery_inputs(rc, k, rn, 5, dev, t=rt)
-    args = (blocked, age, epoch, k, rc, 2, 1000)
-    check(torch.equal(delivery_new_bits(*args), delivery_new_bits_ref(*args)),
-          f"batched delivery kernel differs at t={rt} c={rc} n={rn}")
+    modes, inputs = kernel_modes(dev, c, k, n, 2, t=t)
+    ragged = check_ragged(dev, (
+        (3, 40, 10, 77, 2, 1000, "edges"), (5, 8, 10, 1046, 2, 1000, "all_pending"),
+        (2, 1024, 10, 36, 3, 300, "edges"), (4, 8, 10, 1044, 2, 1000, "misaligned"),
+    ))
     emit({"phase": "kernel_fleet", "shape": {"t": t, "c": c, "k": k, "n": n}, "modes": modes,
-          "ragged_bit_exact": [rt, rc, rn, 2, 1000]})
-    return modes
+          "ragged_bit_exact": ragged})
+    return modes, inputs
 
 
 def fleet_clusters(tenants, n, n_extra, cohorts, seed0, device, knobs=((9, 4), (8, 3)), **planes):
@@ -512,7 +646,9 @@ def phase_fleet_engine(dev):
           "singles_bit_exact": b, "wave_sync_free": True})
 
 
-def phase_fleet_path(dev):
+def phase_fleet_path(dev, captured=None):
+    """Phase 8. ``captured``: a list that receives the delivery inputs of
+    every round of the warm-up wave (plane on, as bench.py runs it)."""
     from rapid_tpu_torch import _host
     from rapid_tpu_torch.ops.kernels import delivery_new_bits
     from rapid_tpu_torch.tenancy import TenantFleet
@@ -543,8 +679,10 @@ def phase_fleet_path(dev):
         fleet, targets = fresh(50_000 if rep is None else 60_000 + 1_000 * rep, side == "on")
         torch.cuda.reset_peak_memory_stats(dev)
         launches0, reads0 = delivery_new_bits.launches, _host.read.count
+        capture = capturing(captured if (side, rep) == order[0] else None)
         start = time.perf_counter()
-        rounds, cuts, resolved, sizes = fleet.run_until_membership(targets, **wave)
+        with capture:
+            rounds, cuts, resolved, sizes = fleet.run_until_membership(targets, **wave)
         ms = (time.perf_counter() - start) * 1e3
         launches = delivery_new_bits.launches - launches0
         reads = _host.read.count - reads0
@@ -600,6 +738,104 @@ def phase_fleet_path(dev):
           "telemetry_on": {**sides["on"], "activity": activity}, "telemetry_off": sides["off"],
           "wave_ms_on_over_off": sides["on"]["median_ms"] / sides["off"]["median_ms"]})
     return total_launches
+
+
+def pass_ms(fn, rounds, reps=5):
+    """Milliseconds of one pass of ``fn`` over ``rounds`` in order (one
+    launch each), captured as one CUDA graph after a warm-up pass: the
+    median of ``reps`` replays, each between one pair of CUDA events."""
+    return cuda_ms(lambda: [fn(*args) for args in rounds], reps=1, warmup=1, runs=reps)
+
+
+def phase_kernel_paths(dev, paths):
+    """Phase 10: the delivery kernel on the inputs captured from the paths
+    (``paths``: name -> every round's arguments, in order). Each round
+    bit for bit against the plain version; one pass over the rounds timed,
+    beside the sum of the rounds' bounds and the share of draws needed."""
+    from rapid_tpu_torch.ops.kernels import delivery_new_bits, delivery_new_bits_ref
+
+    out = {}
+    for name, rounds in paths.items():
+        for i, args in enumerate(rounds):
+            check(torch.equal(delivery_new_bits(*args), delivery_new_bits_ref(*args)),
+                  f"delivery kernel differs on {name} round {i}")
+        bounds = [delivery_bound(*args) for args in rounds]
+        edges = sum(args[1].numel() * args[4] for args in rounds)  # k*n*t rings x c cohorts
+        ms = pass_ms(delivery_new_bits, rounds)
+        bound_ms = sum(b[0] for b in bounds)
+        out[name] = dict(
+            rounds=len(rounds), spread=rounds[0][5], permille=rounds[0][6],
+            shape=list(rounds[0][1].shape), ms=ms, ms_per_launch=ms / len(rounds),
+            bound_ms=bound_ms, bound_by=sorted({b[1] for b in bounds}),
+            share_of_bound=bound_ms / ms, needed_draws=sum(b[2] for b in bounds),
+            needed_draw_share=sum(b[2] for b in bounds) / edges,
+        )
+    emit({"phase": "kernel_paths", **out})
+    return out
+
+
+def parent_delivery(root):
+    """The delivery kernel of another checkout at ``root`` (the first
+    design's C entry point: 11 arguments, no fastmod constant), built with this tree's nvcc
+    flags, as a callable with :func:`delivery_new_bits`'s arguments."""
+    import ctypes
+    from pathlib import Path
+
+    from rapid_tpu_torch import _build
+
+    src = Path(root) / "rapid_tpu_torch" / "csrc" / "delivery.cu"
+    lib = Path(root) / "rapid_tpu_torch" / "build" / "libdelivery-parent.so"
+    lib.parent.mkdir(exist_ok=True)
+    subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)], check=True,
+                   capture_output=True)
+    fn = ctypes.CDLL(str(lib)).rapid_delivery_new_bits
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def call(blocked, age, epoch, k, c, spread, permille):
+        t = age.shape[0] if age.dim() == 3 else 1
+        out = torch.empty(age.shape[:-2] + (c, age.shape[-1]), dtype=torch.int32, device=age.device)
+        stream = torch.cuda.current_stream(age.device).cuda_stream
+        err = fn(blocked.data_ptr(), age.data_ptr(), epoch.data_ptr(), out.data_ptr(),
+                 t, age.shape[-1], k, c, spread, permille, stream)
+        check(err == 0, f"parent delivery kernel launch failed: cudaError {err}")
+        return out
+
+    return call
+
+
+def phase_kernel_ab(dev, root, shapes, paths):
+    """Phase 11 (with ``--parent``): the parent's kernel against this one on
+    the same inputs, in turns (parent, change, change, parent): every mode
+    warm and cold at both shapes (``shapes``: name -> the argument lists of
+    :func:`kernel_modes`), and one pass over each path's captured rounds.
+    The two must agree bit for bit."""
+    from rapid_tpu_torch.ops.kernels import delivery_new_bits
+
+    parent = parent_delivery(root)
+    sides = {"parent": parent, "change": delivery_new_bits}
+
+    def turns(time_side):
+        got = {"parent": [], "change": []}
+        for side in ("parent", "change", "change", "parent"):
+            got[side].append(time_side(sides[side]))
+        return {**got, "change_over_parent": statistics.mean(got["change"]) / statistics.mean(got["parent"])}
+
+    cases = {}
+    for shape, mode_args in shapes.items():
+        for args in mode_args:
+            check(torch.equal(parent(*args[0]), delivery_new_bits(*args[0])),
+                  f"parent and change differ at {shape}")
+            name = f"{shape}_spread{args[0][5]}_permille{args[0][6]}"
+            cases[name + "_warm"] = turns(lambda f: cuda_ms(lambda: f(*args[0])))
+            cases[name + "_cold"] = turns(lambda f: cuda_ms([functools.partial(f, *a) for a in args]))
+    for name, rounds in paths.items():
+        for args in rounds:
+            check(torch.equal(parent(*args), delivery_new_bits(*args)),
+                  f"parent and change differ on {name}")
+        cases[name + "_captured"] = turns(lambda f: pass_ms(f, rounds))
+    emit({"phase": "kernel_ab", "parent": str(root), "cases": cases})
+    return cases
 
 
 def launch_us(dev, count=2000):
@@ -707,7 +943,11 @@ def phase_telemetry_engine(dev):
                     "wave_sync_free": True}})
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--parent", metavar="DIR",
+                        help="another checkout whose delivery kernel phase 11 times against this one")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 2
@@ -731,19 +971,28 @@ def main() -> int:
         launch[name] = launch_us(dev)
         return out
 
-    modes = timed("kernel", phase_kernel)
+    paths = {"churn": [], "fleet_wave": []}
+    modes, churn_inputs = timed("kernel", phase_kernel)
     timed("engine", phase_engine)
-    launches = {"churn": timed("main_path", phase_main_path),
+    launches = {"churn": timed("main_path", phase_main_path, paths["churn"]),
                 "scale_point": timed("scale_point", phase_scale_point)}
-    fleet_modes = timed("kernel_fleet", phase_kernel_fleet, modes)
+    fleet_modes, fleet_inputs = timed("kernel_fleet", phase_kernel_fleet)
     timed("fleet_engine", phase_fleet_engine)
-    launches["fleet_wave"] = timed("fleet_path", phase_fleet_path)
+    launches["fleet_wave"] = timed("fleet_path", phase_fleet_path, paths["fleet_wave"])
     timed("telemetry_engine", phase_telemetry_engine)
+    captured = timed("kernel_paths", phase_kernel_paths, paths)
+    if args.parent:
+        timed("kernel_ab", phase_kernel_ab, args.parent,
+              {"churn": churn_inputs, "fleet": fleet_inputs}, paths)
     emit({"phase": "timing", "seconds": seconds, "total_seconds": time.perf_counter() - start,
           "launch_us_after": launch})
 
-    main_mode = next(m for m in modes if m["spread"] == HEADLINE["spread"] and m["permille"] >= 1000)
-    fleet_mode = next(m for m in fleet_modes if m["spread"] == FLEET["spread"])
+    def paths_mode(mode_list):
+        return next(m for m in mode_list if (m["spread"], m["permille"]) == (HEADLINE["spread"], 1000))
+
+    keys = ("ms", "cold_ms", "plain_ms", "bound_ms", "bound_by", "share_of_bound",
+            "cold_share_of_bound", "needed_draw_share")
+    main_mode, fleet_mode = paths_mode(modes), paths_mode(fleet_modes)
     emit({"kernels": [{
         "name": "delivery_new_bits",
         "route": "cuda",
@@ -757,7 +1006,13 @@ def main() -> int:
         "bound_ms": main_mode["bound_ms"],
         "bound_by": main_mode["bound_by"],
         "library_ms": None,
-        "fleet_shape": {key: fleet_mode[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "cold_ms": main_mode["cold_ms"],
+        "fleet_shape": {key: fleet_mode[key] for key in keys},
+        "mode0": {shape: {key: m[key] for key in keys} for shape, m in (
+            ("churn", modes[0]), ("fleet", fleet_modes[0]))},
+        "captured": {name: {key: run[key] for key in (
+            "rounds", "ms", "bound_ms", "share_of_bound", "needed_draw_share")}
+            for name, run in captured.items()},
     }]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,6 +18,7 @@ tenant axis); :func:`per_batch` lines a per-tenant value up against them.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -121,7 +122,7 @@ def _check_delivery_args(blocked_rows, age_kn, epoch, k, c, spread, permille):
     devices = {t.device for t in tensors.values()}
     if len(devices) != 1:
         raise ValueError(f"delivery inputs lie on different devices: {sorted(map(str, devices))}")
-    if not 1 <= k <= 32 or not 1 <= c <= 1024 or spread < 0 or not 0 <= permille <= 1000:
+    if not 1 <= k <= 32 or not 1 <= c <= 1024 or not 0 <= spread < 2**31 or not 0 <= permille <= 1000:
         raise ValueError(f"bad delivery parameters k={k} c={c} spread={spread} permille={permille}")
     w = (c + 31) // 32
     if age_kn.dim() not in (2, 3) or age_kn.shape[-2] != k:
@@ -131,6 +132,9 @@ def _check_delivery_args(blocked_rows, age_kn, epoch, k, c, spread, permille):
         raise ValueError(
             f"blocked_rows must be {list(batch + (w * k, n))}, got {tuple(blocked_rows.shape)}"
         )
+    if (batch[0] if batch else 1) * w * n >= 2**31:
+        raise ValueError(f"delivery call too large: t * ceil(c/32) * n must be below 2**31, "
+                         f"got {batch[0] if batch else 1} * {w} * {n}")
     if batch:
         if not 1 <= batch[0] <= MAX_TENANTS:
             raise ValueError(f"tenant count must be in [1, {MAX_TENANTS}], got {batch[0]}")
@@ -141,9 +145,28 @@ def _check_delivery_args(blocked_rows, age_kn, epoch, k, c, spread, permille):
     return devices.pop()
 
 
+def fastmod_multiplier(d: int) -> int:
+    """The kernel's constant for ``x % d`` (``1 <= d < 2**32``): Lemire's
+    ``ceil(2**64 / d) mod 2**64``. With it, ``x % d`` for every 32-bit
+    ``x`` is the high word of ``(m * x mod 2**64) * d``."""
+    if not 1 <= d < 2**32:
+        raise ValueError(f"fastmod divisor must be in [1, 2**32), got {d}")
+    return ((2**64 - 1) // d + 1) % 2**64
+
+
+def delivery_divisor(spread: int, permille: int) -> int:
+    """The divisor of the delivery draw's ``rnd % d``: ``spread + 1`` for a
+    uniform delay in ``[0, spread]``, ``spread`` for the gated ``1 + rnd %
+    spread``; 1 (unused) when every delay is 0."""
+    if spread == 0:
+        return 1
+    return spread + 1 if permille >= 1000 else spread
+
+
+@functools.cache
 def _delivery_fn():
     fn = _build.load("delivery").rapid_delivery_new_bits
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_uint64, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -162,11 +185,12 @@ def delivery_new_bits(blocked_rows, age_kn, epoch, k: int, c: int, spread: int, 
     t = age_kn.shape[0] if age_kn.dim() == 3 else 1
     n = age_kn.shape[-1]
     out = torch.empty(age_kn.shape[:-2] + (c, n), dtype=torch.int32, device=device)
+    m = fastmod_multiplier(delivery_divisor(spread, permille))
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = _delivery_fn()(
             blocked_rows.data_ptr(), age_kn.data_ptr(), epoch.data_ptr(), out.data_ptr(),
-            t, n, k, c, spread, permille, stream,
+            t, n, k, c, spread, permille, m, stream,
         )
     if err != 0:
         raise RuntimeError(f"delivery kernel launch failed: cudaError {err}")

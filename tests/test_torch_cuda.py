@@ -16,7 +16,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import churn_cluster, delivery_inputs, fleet_clusters, resolve, sync_checked_wave
+from chip_smoke import (
+    churn_cluster, delivery_inputs, fleet_clusters, resolve, skip_edge_inputs, sync_checked_wave,
+)
 from rapid_tpu_torch import _u32
 from rapid_tpu_torch.convert import state_to_numpy
 from rapid_tpu_torch.ops.kernels import delivery_new_bits, delivery_new_bits_ref
@@ -28,17 +30,39 @@ def card():
     return torch.device("cuda", 0)
 
 
+# (c, k, n, spread, permille, inputs): "random" is chip_smoke.delivery_inputs,
+# the rest chip_smoke.skip_edge_inputs. k=10 takes the kernel's K=10
+# instance, any other k its generic instance.
 @pytest.mark.cuda
-@pytest.mark.parametrize("c,n,spread,permille", [
-    (2, 1000, 0, 1000),    # no jitter
-    (32, 129, 1, 1000),    # one cohort word, ragged slot edge
-    (64, 1000, 2, 1000),   # two words, the main path's mode
-    (33, 257, 1, 250),     # sub-round gate, word boundary
-    (40, 5, 3, 300),       # fewer slots than one thread block
+@pytest.mark.parametrize("c,k,n,spread,permille,inputs", [
+    (2, 10, 1000, 0, 1000, "random"),    # no jitter
+    (32, 10, 129, 1, 1000, "random"),    # one cohort word, ragged slot edge
+    (64, 10, 1000, 2, 1000, "random"),   # two words, the main path's mode
+    (33, 10, 257, 1, 250, "random"),     # sub-round gate, word boundary
+    (40, 10, 5, 3, 300, "random"),       # fewer slots than one thread block
+    (64, 10, 1000, 2, 1000, "edges"),    # ages -2^30, -1, 0, spread-1, spread, spread+1
+    (64, 10, 1000, 2, 1000, "all_blocked"),
+    (64, 10, 1000, 2, 1000, "none_blocked"),
+    (64, 10, 1000, 2, 1000, "all_pending"),
+    (64, 10, 1000, 2, 1000, "misaligned"),  # pointers off 16-byte alignment
+    (64, 10, 1000, 0, 1000, "edges"),
+    (64, 10, 1000, 3, 300, "edges"),
+    (1, 10, 31, 1, 1000, "edges"),       # one cohort, n < 32
+    (31, 10, 130, 31, 1000, "edges"),    # large spread
+    (32, 10, 64, 31, 250, "all_pending"),
+    (33, 10, 1001, 2, 1000, "none_blocked"),
+    (33, 1, 100, 2, 1000, "edges"),      # generic K instance from here on
+    (40, 3, 37, 1, 1000, "edges"),
+    (64, 17, 129, 31, 300, "all_pending"),
+    (5, 32, 64, 2, 1000, "edges"),
+    (32, 32, 1000, 0, 1000, "none_blocked"),
+    (64, 3, 1000, 3, 300, "all_blocked"),
 ])
-def test_delivery_kernel_matches_plain_version(card, c, n, spread, permille):
-    k = 10
-    args = (*delivery_inputs(c, k, n, c * 100 + spread, card), k, c, spread, permille)
+def test_delivery_kernel_matches_plain_version(card, c, k, n, spread, permille, inputs):
+    seed = c * 100 + spread
+    made = (delivery_inputs(c, k, n, seed, card) if inputs == "random"
+            else skip_edge_inputs(inputs, c, k, n, spread, seed, card))
+    args = (*made, k, c, spread, permille)
     before = delivery_new_bits.launches
     got = delivery_new_bits(*args)
     want = delivery_new_bits_ref(*args)
@@ -48,16 +72,23 @@ def test_delivery_kernel_matches_plain_version(card, c, n, spread, permille):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("t,c,n,spread,permille", [
-    (256, 8, 1044, 2, 1000),  # the fleet shape, the fleet path's mode
-    (256, 8, 1044, 0, 1000),
-    (256, 8, 1044, 3, 300),
-    (3, 40, 77, 2, 1000),     # ragged: two cohort words, less than a block
-    (1, 64, 129, 1, 1000),    # a fleet of one
+@pytest.mark.parametrize("t,c,k,n,spread,permille,inputs", [
+    (256, 8, 10, 1044, 2, 1000, "random"),  # the fleet shape, the fleet path's mode
+    (256, 8, 10, 1044, 0, 1000, "random"),
+    (256, 8, 10, 1044, 3, 300, "random"),
+    (3, 40, 10, 77, 2, 1000, "random"),     # ragged: two cohort words, less than a block
+    (1, 64, 10, 129, 1, 1000, "random"),    # a fleet of one
+    (2, 1024, 10, 40, 2, 1000, "edges"),    # 32 cohort words
+    (4, 8, 10, 1044, 2, 1000, "edges"),
+    (3, 8, 10, 1044, 2, 1000, "all_pending"),
+    (256, 8, 10, 1044, 2, 1000, "misaligned"),
+    (2, 33, 17, 30, 1, 250, "edges"),
 ])
-def test_batched_delivery_kernel_matches_plain_version(card, t, c, n, spread, permille):
-    k = 10
-    args = (*delivery_inputs(c, k, n, t + spread, card, t=t), k, c, spread, permille)
+def test_batched_delivery_kernel_matches_plain_version(card, t, c, k, n, spread, permille, inputs):
+    seed = t + spread
+    made = (delivery_inputs(c, k, n, seed, card, t=t) if inputs == "random"
+            else skip_edge_inputs(inputs, c, k, n, spread, seed, card, t=t))
+    args = (*made, k, c, spread, permille)
     before = delivery_new_bits.launches
     got = delivery_new_bits(*args)
     want = delivery_new_bits_ref(*args)
