@@ -35,7 +35,7 @@ exits non-zero:
 8. fleet_path: ``bench.py``'s fleet point on the port as ``bench.py`` writes
    it, 256 tenants x 1,024 members with the telemetry plane on, resolved in
    one 96-round lockstep wave; in the same call the same waves with the
-   plane off. Per side a warm-up and seven timed samples on fresh fleets
+   plane off. Per side a warm-up and five timed samples on fresh fleets
    (built on the CPU and copied to the card; the sides take turns), then
    one profiled wave;
 9. telemetry_engine: phase 3's churn with the plane and a 6-round ring
@@ -52,7 +52,27 @@ exits non-zero:
    rounds in path order timed beside the sum of their bounds;
 11. kernel_ab, only with ``--parent DIR``: the delivery kernel of the
    checkout at DIR built beside this one and timed against it in turns
-   (parent, change, change, parent) on phases 2, 6 and 10's inputs.
+   (parent, change, change, parent) on phases 2, 6 and 10's inputs;
+12. compact_paths: phase 4's churn (planes off) and phase 5's 1M point,
+   each built wide and built compact (``compact=True``) from the same
+   seeds, the sides in turns (churn: a warm-up and three timed each; 1M:
+   one and one): equal rounds, cuts and config ids, the widened compact
+   state equal to the wide one on every lane on the card, every lane at its
+   policy dtype, the state's tensor bytes equal to ``state_bytes_total``;
+   per side the peak device memory, the medians and one profiled churn's
+   kernels per round;
+13. compact_fleet: one of phase 8's CPU-built fleets (plane on) copied to
+   the card wide and narrowed (``narrow_state``), a warm-up and three timed
+   96-round waves per side in turns: equal cuts, rounds and sizes per
+   tenant, the widened compact state equal to the wide one, every tenant
+   healthy (``tenant_health``), int16 index lanes; then the first 8 rounds
+   of a wave profiled per side (kernels per round);
+14. endpoints_path: 102,500 endpoints with hostnames of mixed lengths hashed
+   into ring keys on the host (timed), ``VirtualCluster.from_endpoints``
+   (100,000 members, 2,500 keyed joiner slots, compact) on the card; the
+   sorting ``ring_topology`` against ``ring_topology_from_perm``; 2,500
+   crashes and the 2,500 joiners resolved; and a 2,048-endpoint twin on the
+   card and on the CPU, equal on every lane.
 
 A kernel's bound (``delivery_bound``) is the larger of its bytes (each
 input once, the output once) over the HBM rate and the delay draws its
@@ -60,7 +80,7 @@ inputs need (unblocked edges with ``0 <= age < spread``) times the
 operations of one draw over the int32 issue rate.
 
 The delivery kernel's launch count is zeroed just before each of the
-paths 4, 5 and 8 and read just after. Then the kernels line, the card's
+paths 4, 5, 8, 12 (churn and 1M), 13 and 14 and read just after. Then the kernels line, the card's
 name and power limit from ``nvidia-smi``, and as the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -93,11 +113,14 @@ DELAY_MODES = ((0, 1000), (2, 1000), (3, 300))
 COLD_BYTES = 120e6
 
 HEADLINE = dict(n=100_000, n_join=2_500, n_crash=2_500, k=10, cohorts=64, spread=2)
+# bench.py's crash-1% scale point: N members, 8 cohorts, N // 100 crashes.
+SCALE = dict(n=1_000_000, cohorts=8)
 TIMED_SAMPLES = 5  # per side of the plane-on / plane-off comparison
 # bench.py's fleet point: B tenants of N members, n_extra = N // 50 extra
 # slots, 8 cohorts, K=10, fd_threshold 3, spread 2, one 96-round wave.
 FLEET = dict(tenants=256, n=1_024, n_extra=20, k=10, cohorts=8, spread=2, max_steps=96)
-FLEET_TIMED_SAMPLES = 7  # per side of the plane-on / plane-off comparison
+FLEET_TIMED_SAMPLES = 5  # per side of the plane-on / plane-off comparison
+COMPACT_TIMED_SAMPLES = 3  # per side of the wide / compact comparisons (churn, fleet)
 
 
 def check(cond, message):
@@ -510,7 +533,7 @@ def phase_scale_point(dev):
     from rapid_tpu_torch.models.virtual_cluster import VirtualCluster
     from rapid_tpu_torch.ops.kernels import delivery_new_bits
 
-    n, cohorts = 1_000_000, 8
+    n, cohorts = SCALE["n"], SCALE["cohorts"]
     n_crash = n // 100
     runs = []
     delivery_new_bits.launches = 0
@@ -646,9 +669,11 @@ def phase_fleet_engine(dev):
           "singles_bit_exact": b, "wave_sync_free": True})
 
 
-def phase_fleet_path(dev, captured=None):
+def phase_fleet_path(dev, captured=None, built=None):
     """Phase 8. ``captured``: a list that receives the delivery inputs of
-    every round of the warm-up wave (plane on, as bench.py runs it)."""
+    every round of the warm-up wave (plane on, as bench.py runs it);
+    ``built``: a list that receives one fleet as built on the CPU (plane
+    on) and its targets, untouched, for phase 13."""
     from rapid_tpu_torch import _host
     from rapid_tpu_torch.ops.kernels import delivery_new_bits
     from rapid_tpu_torch.tenancy import TenantFleet
@@ -662,7 +687,10 @@ def phase_fleet_path(dev, captured=None):
         clusters, targets = fleet_clusters(
             b, n, n_extra, FLEET["cohorts"], seed0, torch.device("cpu"), telemetry=telemetry
         )
-        fleet = fleet_on(TenantFleet.from_clusters(clusters), dev)
+        cpu = TenantFleet.from_clusters(clusters)
+        if built is not None and not built and telemetry:
+            built.extend((cpu, targets))
+        fleet = fleet_on(cpu, dev)
         fleet.sync()
         return fleet, targets
 
@@ -943,6 +971,315 @@ def phase_telemetry_engine(dev):
                     "wave_sync_free": True}})
 
 
+def check_compact_against_wide(wide_state, comp_cfg, comp_state, what):
+    """The widened compact state equals the wide one on every lane, on the
+    device, and every compact lane is stored at its policy dtype."""
+    from rapid_tpu_torch.models.state import lane_storage, widen_state
+
+    widened = widen_state(comp_cfg, comp_state)
+    for field in wide_state._fields:
+        check(torch.equal(getattr(widened, field), getattr(wide_state, field)),
+              f"{what}: widened compact lane {field} differs from the wide one")
+    storage = lane_storage(comp_cfg)
+    for field, value in comp_state._asdict().items():
+        check(value.dtype == storage[field], f"{what}: lane {field} is {value.dtype}, not {storage[field]}")
+
+
+def pair_up(first, key, side, cfg, state, faults, result, what):
+    """The wide-against-compact check of one key's two runs (phases 12 and
+    13), with one side's state on the card at a time: the first run of a
+    key leaves its final lanes on the host; the second brings them back
+    and checks that both runs gave the same ``result`` and that the widened
+    compact state (and faults) equals the wide one on the card."""
+    from rapid_tpu_torch.convert import faults_from_numpy, state_from_numpy, state_to_numpy
+
+    if key not in first:
+        first[key] = (side, cfg, state_to_numpy(state), state_to_numpy(faults), result)
+        return
+    other, other_cfg, other_state, other_faults, other_result = first.pop(key)
+    check(result == other_result, f"{what}: {side} {result}, {other} {other_result}")
+    dev = state.alive.device
+    tenants = state.alive.shape[0] if state.alive.dim() == 2 else None
+    back = (state_from_numpy(other_cfg, other_state, dev, tenants),
+            faults_from_numpy(other_cfg, other_faults, dev, tenants))
+    wide, comp = ((state, faults), back) if side == "wide" else (back, (state, faults))
+    comp_cfg = cfg if side == "compact" else other_cfg
+    for wide_lanes, comp_lanes in zip(wide, comp):
+        check_compact_against_wide(wide_lanes, comp_cfg, comp_lanes, what)
+
+
+def state_bytes(vc):
+    """(bytes of the state's and faults' tensors, the formula's bytes)."""
+    from rapid_tpu_torch.models.state import pytree_nbytes, state_bytes_total
+
+    return pytree_nbytes(vc.state) + pytree_nbytes(vc.faults), state_bytes_total(vc.cfg)
+
+
+def phase_compact_paths(dev):
+    """Phase 12: the churn and the 1M point, wide against compact. Returns
+    the delivery launches of (the churns, the 1M runs)."""
+    from rapid_tpu_torch import _host
+    from rapid_tpu_torch.models.virtual_cluster import VirtualCluster
+    from rapid_tpu_torch.ops.kernels import delivery_new_bits
+
+    n, n_join = HEADLINE["n"], HEADLINE["n_join"]
+    sides = ("wide", "compact")
+    order = [(0, "wide"), (0, "compact")] + [
+        (seed, side) for seed in range(1, 1 + COMPACT_TIMED_SAMPLES)
+        for side in (sides if seed % 2 else sides[::-1])
+    ]
+    samples = {side: [] for side in sides}
+    first, bytes_per_member = {}, {}
+    delivery_new_bits.launches = 0
+    for seed, side in order:
+        vc, victims = churn_cluster(n, n_join, HEADLINE["n_crash"], HEADLINE["cohorts"], seed, dev,
+                                    compact=side == "compact")
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        launches0, reads0 = delivery_new_bits.launches, _host.read.count
+        start = time.perf_counter()
+        rounds, cuts, resolved, sizes = resolve(vc, n)
+        torch.cuda.synchronize(dev)
+        ms = (time.perf_counter() - start) * 1e3
+        check(resolved and vc.membership_size == n, f"{side} churn unresolved: {cuts} cuts, {sizes}")
+        alive = vc.alive_mask
+        check(not alive[victims].any() and alive[n:].all(), f"{side} churn: wrong members")
+        measured, formula = state_bytes(vc)
+        check(measured == formula, f"{side} churn: {measured} state bytes, the formula {formula}")
+        bytes_per_member[side] = measured / vc.cfg.n
+        samples[side].append(dict(
+            warmup=seed == 0, seed=seed, ms=ms, rounds=rounds, cuts=cuts, sizes=list(sizes),
+            host_reads=_host.read.count - reads0,
+            kernel_launches=delivery_new_bits.launches - launches0,
+            allocated_before_bytes=before,
+            peak_memory_bytes=torch.cuda.max_memory_allocated(dev),
+        ))
+        pair_up(first, seed, side, vc.cfg, vc.state, vc.faults, (rounds, cuts, sizes, vc.config_id),
+                f"churn seed {seed}")
+        del vc
+    churn_launches = delivery_new_bits.launches
+    check(churn_launches > 0, "the compact churns never launched the delivery kernel")
+    profiles = {side: profile_churn(dev, compact=side == "compact") for side in sides}
+
+    # The 1M point, wide and compact from the same seeds, in turns.
+    n1, cohorts = SCALE["n"], SCALE["cohorts"]
+    runs = {side: [] for side in sides}
+    delivery_new_bits.launches = 0
+    for seed, side in ((7, "wide"), (7, "compact"), (8, "compact"), (8, "wide")):
+        vc = VirtualCluster.create(
+            n1, k=HEADLINE["k"], h=9, l=4, cohorts=cohorts, fd_threshold=3, seed=seed,
+            delivery_spread=HEADLINE["spread"], compact=side == "compact", device=dev,
+        )
+        vc.assign_cohorts_roundrobin()
+        vc.crash(np.random.default_rng(seed).choice(n1, size=n1 // 100, replace=False))
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        launches0 = delivery_new_bits.launches
+        start = time.perf_counter()
+        rounds, decided, _, members = vc.run_to_decision(max_steps=96)
+        torch.cuda.synchronize(dev)
+        ms = (time.perf_counter() - start) * 1e3
+        check(decided and members == n1 - n1 // 100, f"{side} 1M point: {decided}, {members}")
+        measured, formula = state_bytes(vc)
+        check(measured == formula, f"{side} 1M: {measured} state bytes, the formula {formula}")
+        runs[side].append(dict(warmup=seed == 7, ms=ms, rounds=rounds, state_bytes=measured,
+                               kernel_launches=delivery_new_bits.launches - launches0,
+                               allocated_before_bytes=before,
+                               peak_memory_bytes=torch.cuda.max_memory_allocated(dev)))
+        pair_up(first, seed, side, vc.cfg, vc.state, vc.faults, (rounds, vc.config_id), f"1M seed {seed}")
+        del vc
+    scale_launches = delivery_new_bits.launches
+    check(scale_launches > 0, "the 1M runs never launched the delivery kernel")
+
+    def churn_side(side):
+        timed = [x for x in samples[side] if not x["warmup"]]
+        return {"median_ms": statistics.median(x["ms"] for x in timed),
+                "samples": samples[side],
+                "peak_memory_bytes": max(x["peak_memory_bytes"] for x in timed),
+                "state_bytes_per_member": bytes_per_member[side],
+                "kernels_per_round": profiles[side]["kernels_per_round"],
+                "profile": profiles[side]}
+
+    emit({"phase": "compact_paths", "churn": {
+        "n": n, "n_slots": n + n_join, "cohorts": HEADLINE["cohorts"],
+        **{side: churn_side(side) for side in sides},
+        "ms_compact_over_wide": churn_side("compact")["median_ms"] / churn_side("wide")["median_ms"],
+        "launches": churn_launches, "widened_equal_to_wide": len(order) // 2,
+    }, "scale_point": {
+        "n": n1, "cohorts": cohorts,
+        **{side: {"runs": runs[side], "state_bytes_per_member": runs[side][0]["state_bytes"] / n1,
+                  "peak_memory_bytes": max(r["peak_memory_bytes"] for r in runs[side])}
+           for side in sides},
+        "launches": scale_launches,
+    }})
+    return churn_launches, scale_launches
+
+
+def compact_fleet(fleet):
+    """The fleet with its stacked state narrowed to the compact policy (the
+    fault masks, knobs and plane lanes as they are)."""
+    from rapid_tpu_torch.models.state import narrow_state
+    from rapid_tpu_torch.tenancy import TenantFleet
+
+    cfg = fleet.cfg._replace(compact=1)
+    out = TenantFleet(cfg, narrow_state(cfg, fleet.state), fleet.faults, fleet.knobs)
+    out.telem, out.trace_ring = fleet.telem, fleet.trace_ring
+    return out
+
+
+def phase_compact_fleet(dev, built):
+    """Phase 13: ``built`` = (a fleet built on the CPU, its targets), run
+    wide and compact on the card in turns. Returns the delivery launches."""
+    from rapid_tpu_torch import _host
+    from rapid_tpu_torch.models.state import pytree_nbytes
+    from rapid_tpu_torch.ops.kernels import delivery_new_bits
+    from rapid_tpu_torch.tenancy.fleet import tenant_health
+
+    cpu, targets = built
+    wave = dict(max_steps=FLEET["max_steps"], max_cuts=4, min_cuts=1)
+    sides = ("wide", "compact")
+    order = [(None, "wide"), (None, "compact")] + [
+        (rep, side) for rep in range(COMPACT_TIMED_SAMPLES) for side in (sides if rep % 2 else sides[::-1])
+    ]
+    samples = {side: [] for side in sides}
+    first, nbytes = {}, {}
+    delivery_new_bits.launches = 0
+    for rep, side in order:
+        fleet = fleet_on(cpu, dev)
+        if side == "compact":
+            fleet = compact_fleet(fleet)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        launches0, reads0 = delivery_new_bits.launches, _host.read.count
+        start = time.perf_counter()
+        result = fleet.run_until_membership(targets, **wave)
+        ms = (time.perf_counter() - start) * 1e3
+        launches, reads = delivery_new_bits.launches - launches0, _host.read.count - reads0
+        check(result[2].all(), f"{side} fleet: tenants unresolved")
+        check(launches == wave["max_steps"] and reads == 1, f"{side} wave: {launches} launches, {reads} reads")
+        check(bool(tenant_health(fleet.cfg, fleet.state).all()), f"{side} fleet: a tenant is unhealthy")
+        nbytes[side] = (pytree_nbytes(fleet.state) + pytree_nbytes(fleet.faults)) / (fleet.b * fleet.cfg.n)
+        samples[side].append(dict(warmup=rep is None, ms=ms, view_changes=int(result[1].sum()),
+                                  view_changes_per_sec=int(result[1].sum()) / (ms / 1e3),
+                                  kernel_launches=launches, host_reads=reads,
+                                  allocated_before_bytes=before,
+                                  peak_memory_bytes=torch.cuda.max_memory_allocated(dev)))
+        if side == "compact":
+            check(fleet.state.ring_perm.dtype == fleet.state.obs_idx.dtype == torch.int16,
+                  f"fleet index lanes are {fleet.state.obs_idx.dtype}, not int16")
+        pair_up(first, rep, side, fleet.cfg, fleet.state, fleet.faults,
+                [r.tolist() for r in result], f"fleet rep {rep}")
+        del fleet
+    total = delivery_new_bits.launches
+    # Kernels per round from the first rounds of a wave: the lockstep wave
+    # launches the same kernels every round, and the profiler's processing
+    # of a whole wave's ~330,000 host ops would take tens of seconds.
+    profiles, profiled_rounds = {}, 8
+    for side in sides:
+        fleet = fleet_on(cpu, dev)
+        fleet = compact_fleet(fleet) if side == "compact" else fleet
+        _, profiles[side] = profile_run(
+            dev, lambda: fleet.run_until_membership(targets, **{**wave, "max_steps": profiled_rounds}))
+        profiles[side]["kernels_per_round"] = profiles[side]["device_kernels"] / profiled_rounds
+        del fleet
+
+    def side_summary(side):
+        timed = [x for x in samples[side] if not x["warmup"]]
+        return {"median_ms": statistics.median(x["ms"] for x in timed),
+                "median_view_changes_per_sec": statistics.median(x["view_changes_per_sec"] for x in timed),
+                "peak_memory_bytes": max(x["peak_memory_bytes"] for x in timed),
+                "state_bytes_per_member": nbytes[side], "samples": samples[side],
+                "kernels_per_round": profiles[side]["kernels_per_round"], "profile": profiles[side]}
+
+    emit({"phase": "compact_fleet", "tenants": cpu.b, "n_slots": cpu.cfg.n,
+          "rounds_per_wave": wave["max_steps"], **{side: side_summary(side) for side in sides},
+          "ms_compact_over_wide": side_summary("compact")["median_ms"] / side_summary("wide")["median_ms"],
+          "launches": total, "widened_equal_to_wide": len(order) // 2, "tenants_healthy": True})
+    return total
+
+
+def endpoint_list(count):
+    """``count`` endpoints with hostnames of mixed lengths and varied ports."""
+    from rapid_tpu_torch.types import Endpoint
+
+    return [Endpoint(f"node-{i}.r{i % 97}.dc{i % 3}.example", 7000 + (i * 7919) % 50_000)
+            for i in range(count)]
+
+
+def endpoint_churn(endpoints, n, n_join, n_crash, device):
+    """A compact endpoint cluster of ``n`` members and ``n_join`` keyed
+    joiner slots (the churn's geometry), its cohorts assigned, ``n_crash``
+    seeded crashes and the joiners injected. Returns (cluster, victims)."""
+    from rapid_tpu_torch.models.virtual_cluster import VirtualCluster
+
+    vc = VirtualCluster.from_endpoints(
+        endpoints, n_members=n, n_slots=n + n_join, k=HEADLINE["k"], h=9, l=4,
+        cohorts=HEADLINE["cohorts"], fd_threshold=3, delivery_spread=HEADLINE["spread"],
+        concurrent_coordinators=2, compact=True, device=device,
+    )
+    vc.assign_cohorts_roundrobin()
+    victims = np.random.default_rng(n).choice(n, size=n_crash, replace=False)
+    vc.crash(victims)
+    vc.inject_join_wave(np.arange(n, n + n_join))
+    return vc, victims
+
+
+def phase_endpoints_path(dev):
+    """Phase 14. Returns the delivery launches of the 100,000-member churn."""
+    from rapid_tpu_torch import _host
+    from rapid_tpu_torch.convert import state_to_numpy
+    from rapid_tpu_torch.ops.kernels import delivery_new_bits
+    from rapid_tpu_torch.ops.rings import endpoint_ring_keys, ring_topology, ring_topology_from_perm
+
+    n, n_join, n_crash = HEADLINE["n"], HEADLINE["n_join"], HEADLINE["n_crash"]
+    endpoints = endpoint_list(n + n_join)
+    start = time.perf_counter()
+    key_hi, _ = endpoint_ring_keys(endpoints, HEADLINE["k"])
+    ring_key_ms = (time.perf_counter() - start) * 1e3
+    start = time.perf_counter()
+    vc, victims = endpoint_churn(endpoints, n, n_join, n_crash, dev)
+    torch.cuda.synchronize(dev)
+    build_ms = (time.perf_counter() - start) * 1e3
+    check(np.array_equal(state_to_numpy(vc.state)["key_hi"], key_hi), "ring keys differ on the card")
+    alive = vc.state.alive
+    by_sort = ring_topology(vc.state.key_hi, vc.state.key_lo, alive)
+    by_perm = ring_topology_from_perm(vc.state.ring_perm, alive)
+    for field in by_sort._fields:
+        check(torch.equal(getattr(by_sort, field), getattr(by_perm, field)),
+              f"ring_topology and ring_topology_from_perm differ in {field}")
+    delivery_new_bits.launches = 0
+    reads0 = _host.read.count
+    torch.cuda.synchronize(dev)
+    start = time.perf_counter()
+    rounds, cuts, resolved, sizes = resolve(vc, n)
+    torch.cuda.synchronize(dev)
+    ms = (time.perf_counter() - start) * 1e3
+    launches, reads = delivery_new_bits.launches, _host.read.count - reads0
+    check(resolved and vc.membership_size == n, f"endpoint churn unresolved: {cuts} cuts, {sizes}")
+    members = vc.alive_mask
+    check(not members[victims].any() and members[n:].all(), "endpoint churn: wrong members")
+    check(launches > 0, "the endpoint churn never launched the delivery kernel")
+
+    # The same path at 2,048 endpoints on the card and on the CPU.
+    twin = {}
+    for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        small, _ = endpoint_churn(endpoint_list(2_048), 2_000, 48, 48, device)
+        result = resolve(small, 2_000)
+        twin[where] = (result, {**state_to_numpy(small.state), **state_to_numpy(small.faults)})
+    check(twin["card"][0] == twin["cpu"][0] and twin["card"][0][2], f"endpoint twin: {twin['card'][0]}, {twin['cpu'][0]}")
+    check_same_lanes(twin["card"][1], twin["cpu"][1], "endpoint twin card vs cpu")
+    emit({"phase": "endpoints_path", "endpoints": n + n_join, "n": n, "compact": True,
+          "ring_key_ms_host": ring_key_ms, "build_ms": build_ms, "ms": ms, "rounds": rounds,
+          "cuts": cuts, "sizes": list(sizes), "host_reads": reads,
+          "kernel_launches": launches, "topology_sort_equals_scan": True,
+          "twin": {"endpoints": 2_048, "rounds": twin["card"][0][0],
+                   "lanes_bit_exact": len(twin["cpu"][1])}})
+    return launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--parent", metavar="DIR",
@@ -972,18 +1309,27 @@ def main(argv=None) -> int:
         return out
 
     paths = {"churn": [], "fleet_wave": []}
+    built = []
     modes, churn_inputs = timed("kernel", phase_kernel)
     timed("engine", phase_engine)
     launches = {"churn": timed("main_path", phase_main_path, paths["churn"]),
                 "scale_point": timed("scale_point", phase_scale_point)}
     fleet_modes, fleet_inputs = timed("kernel_fleet", phase_kernel_fleet)
     timed("fleet_engine", phase_fleet_engine)
-    launches["fleet_wave"] = timed("fleet_path", phase_fleet_path, paths["fleet_wave"])
+    launches["fleet_wave"] = timed("fleet_path", phase_fleet_path, paths["fleet_wave"], built)
     timed("telemetry_engine", phase_telemetry_engine)
     captured = timed("kernel_paths", phase_kernel_paths, paths)
     if args.parent:
         timed("kernel_ab", phase_kernel_ab, args.parent,
               {"churn": churn_inputs, "fleet": fleet_inputs}, paths)
+    # The kernel phases' inputs and the captured rounds (~2.5 GB on the
+    # card) go before the layouts' peak memory is read.
+    del churn_inputs, fleet_inputs
+    paths.clear()
+    launches["compact_churn"], launches["compact_scale_point"] = timed(
+        "compact_paths", phase_compact_paths)
+    launches["compact_fleet_wave"] = timed("compact_fleet", phase_compact_fleet, built)
+    launches["endpoints_churn"] = timed("endpoints_path", phase_endpoints_path)
     emit({"phase": "timing", "seconds": seconds, "total_seconds": time.perf_counter() - start,
           "launch_us_after": launch})
 

@@ -17,6 +17,13 @@ The rule, used everywhere in :mod:`rapid_tpu_torch`:
 
 numpy is the bridge to the JAX package: :func:`from_numpy` and
 :func:`to_numpy` move uint32 arrays in and out as bit views.
+
+:func:`widen` REFUSES int8 and int16 input. Under the compact layout an
+int16 tensor may be a signed counter or the bits of a uint16 bitmask
+(:mod:`rapid_tpu_torch._narrow`), and a sign-extending widen would turn a
+uint16 0xFFFF into 0xFFFFFFFF. A caller widens such a lane by its kind:
+``_narrow.unsigned`` for a bitmask, ``.to(torch.int32)`` for a signed
+value (the JAX package's ``astype(uint32)``).
 """
 
 from __future__ import annotations
@@ -29,8 +36,14 @@ _SIGN = 0x80000000
 
 
 def widen(x: torch.Tensor) -> torch.Tensor:
-    """Stored uint32 lanes (int32 bit patterns, or bool / small ints) as
-    int64 values in ``[0, 2**32)``."""
+    """Stored uint32 lanes (int32 bit patterns; also bool, uint8 and int64
+    values) as int64 values in ``[0, 2**32)``. Raises on int8 and int16
+    input, whose signedness the dtype does not tell (module docstring)."""
+    if x.dtype in (torch.int8, torch.int16):
+        raise TypeError(
+            f"_u32.widen takes no {x.dtype} lane: widen a narrow bitmask with "
+            "_narrow.unsigned, a signed value with .to(torch.int32)"
+        )
     return x.to(torch.int64) & MASK
 
 
@@ -71,8 +84,8 @@ def mix32_w(x: torch.Tensor) -> torch.Tensor:
 
 def from_numpy(arr, device) -> torch.Tensor:
     """A numpy uint32 array as stored lanes on ``device``."""
-    a = np.ascontiguousarray(np.asarray(arr, dtype=np.uint32))
-    return torch.from_numpy(a.view(np.int32).copy()).to(device)
+    a = np.array(arr, dtype=np.uint32, order="C")  # a copy; 0-d stays 0-d
+    return torch.from_numpy(a.view(np.int32)).to(device)
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:

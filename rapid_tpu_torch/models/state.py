@@ -1,10 +1,13 @@
 """Engine state: N virtual membership endpoints as struct-of-arrays (port of
-``rapid_tpu/models/state.py``, wide layout only).
+``rapid_tpu/models/state.py``).
 
-Every lane has the JAX package's shape and wide dtype, with uint32 lanes
-stored as int32 bit patterns (:mod:`rapid_tpu_torch._u32`). Scalars are 0-d
-tensors on the state's device, so a round never reads them back unless it
-branches on them.
+Every lane has the JAX package's shape and, under the config's compaction
+policy (:func:`compaction_policy`: the wide layout at ``compact=0``, the
+narrowest legal dtypes at ``compact=1``), its dtype. Lanes are stored by
+the port's rules: uint32 as int32 bit patterns (:mod:`rapid_tpu_torch._u32`),
+uint16 as int16 bit patterns and every other dtype as itself
+(:mod:`rapid_tpu_torch._narrow`). Scalars are 0-d tensors on the state's
+device, so a round never reads them back unless it branches on them.
 """
 
 from __future__ import annotations
@@ -12,14 +15,24 @@ from __future__ import annotations
 import math
 from typing import Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
+from rapid_tpu_torch import _narrow
 from rapid_tpu_torch.ops.hashing import masked_set_hash
 from rapid_tpu_torch.ops.kernels import per_batch
 from rapid_tpu_torch.ops.rings import ring_perms, ring_topology_from_perm
 
-#: Sentinel fire round of an edge whose alert has not fired.
+#: Sentinel fire round of an edge whose alert has not fired (wide layout).
 FIRE_NEVER = 1 << 30
+#: The sentinel of the compact layout's int16 fire rounds: a fire round is
+#: real (at most :data:`ROUND_ENVELOPE`) or this, so ``round_idx -
+#: sentinel`` stays negative for every in-envelope round.
+FIRE_NEVER_NARROW = 1 << 14
+#: Rounds one configuration may run under the compact layout before the
+#: int16 fire round loses the fired / unfired distinction. Every view change
+#: resets ``round_idx`` to 0.
+ROUND_ENVELOPE = FIRE_NEVER_NARROW - 1
 
 
 class EngineConfig(NamedTuple):
@@ -49,7 +62,10 @@ class EngineConfig(NamedTuple):
     delivery_prob_permille: int = 1000
     # Tile width of the TPU kernel; kept for positional parity, unused here.
     pallas_lanes: int = 128
-    # State compaction (not ported yet: must be 0).
+    # 0 = the wide int32/uint32 layout; 1 = every lane of NARROWABLE_LANES
+    # at the narrowest legal dtype (:func:`compaction_policy`), bit for bit
+    # the same protocol within the envelopes (ROUND_ENVELOPE rounds, fewer
+    # than 2**15 - 1 classic attempts and fd events per configuration).
     compact: int = 0
     # 1 = carry the device telemetry plane (:class:`TelemetryLanes`).
     telemetry: int = 0
@@ -58,69 +74,158 @@ class EngineConfig(NamedTuple):
     trace: int = 0
 
 
-#: field -> (shape symbols over (n, k, c), stored kind). Kinds: "u32" lanes
-#: are int32 bit patterns of uint32 values, "i32" int32, "bool" bool. The
-#: JAX package's wide layout (its ``LANE_SPECS`` under ``WIDE_POLICY``).
-LANES: Dict[str, Tuple[Tuple[str, ...], str]] = {
+class CompactionPolicy(NamedTuple):
+    """Per-lane-kind numpy dtype NAMES, a pure function of the config
+    (:func:`compaction_policy`), with ``fire_never`` the unfired-edge
+    sentinel legal at the ``round`` dtype. Kinds: ``idx`` (ring and rank
+    indices in ``[-1, n-1]`` plus n itself), ``cohort`` (in ``[-1, c-1]``
+    plus c), ``counter`` (fd counts, classic ranks and epochs, rounds
+    undecided), ``hist`` (the fd bit-history, ``fd_window`` bits),
+    ``report`` (ring bitmasks, K bits; uint32 under ``use_pallas``, as the
+    JAX package keeps it for its kernel's words) and ``round`` (fire
+    rounds)."""
+
+    idx: str
+    cohort: str
+    counter: str
+    hist: str
+    report: str
+    round: str
+    fire_never: int
+
+
+#: The wide layout: the differential oracle of the compact one.
+WIDE_POLICY = CompactionPolicy(
+    idx="int32", cohort="int32", counter="int32", hist="uint32",
+    report="uint32", round="int32", fire_never=FIRE_NEVER,
+)
+
+#: The EngineState lanes the compact policy may store below 32 bits.
+NARROWABLE_LANES = frozenset({
+    "ring_perm", "obs_idx", "subj_idx", "inval_obs", "cohort_of",
+    "fd_count", "fd_hist", "fire_round", "report_bits",
+    "cp_rnd_r", "cp_rnd_i", "cp_vrnd_r", "cp_vrnd_i", "cp_vval_src",
+    "classic_epoch", "rounds_undecided",
+})
+
+
+def min_index_dtype(n: int) -> str:
+    """Smallest signed dtype holding indices in ``[-1, n-1]`` AND the count
+    ``n`` itself (the JAX package's index normalization materializes n in
+    the index dtype)."""
+    if n < 1 << 7:
+        return "int8"
+    if n < 1 << 15:
+        return "int16"
+    return "int32"
+
+
+def _min_bits_dtype(bits: int) -> str:
+    """Smallest unsigned dtype holding a ``bits``-wide bitmask."""
+    if bits <= 8:
+        return "uint8"
+    if bits <= 16:
+        return "uint16"
+    return "uint32"
+
+
+def compaction_policy(cfg: "EngineConfig") -> CompactionPolicy:
+    """The config -> dtype derivation: :data:`WIDE_POLICY` at ``compact=0``,
+    else every kind at its narrowest legal dtype."""
+    if not cfg.compact:
+        return WIDE_POLICY
+    return CompactionPolicy(
+        idx=min_index_dtype(cfg.n),
+        cohort=min_index_dtype(cfg.c),
+        counter="int16",
+        # Counter mode (fd_window 0) leaves fd_hist unused: stored narrowest.
+        hist=_min_bits_dtype(max(cfg.fd_window, 1)),
+        report="uint32" if cfg.use_pallas else _min_bits_dtype(cfg.k),
+        round="int16",
+        fire_never=FIRE_NEVER_NARROW,
+    )
+
+
+#: field -> (shape symbols over (n, k, c), policy kind) of every
+#: EngineState and FaultInputs lane, the JAX package's table. The kinds
+#: "uint32", "int32" and "bool" are fixed-width; the others are
+#: :class:`CompactionPolicy` fields.
+LANE_SPECS: Dict[str, Tuple[Tuple[str, ...], str]] = {
     # EngineState
-    "key_hi": (("k", "n"), "u32"),
-    "key_lo": (("k", "n"), "u32"),
-    "ring_perm": (("k", "n"), "i32"),
-    "id_hi": (("n",), "u32"),
-    "id_lo": (("n",), "u32"),
+    "key_hi": (("k", "n"), "uint32"),
+    "key_lo": (("k", "n"), "uint32"),
+    "ring_perm": (("k", "n"), "idx"),
+    "id_hi": (("n",), "uint32"),
+    "id_lo": (("n",), "uint32"),
     "alive": (("n",), "bool"),
-    "obs_idx": (("k", "n"), "i32"),
-    "subj_idx": (("k", "n"), "i32"),
-    "inval_obs": (("k", "n"), "i32"),
-    "config_epoch": ((), "i32"),
-    "config_hi": ((), "u32"),
-    "config_lo": ((), "u32"),
-    "n_members": ((), "i32"),
-    "fd_count": (("n", "k"), "i32"),
-    "fd_hist": (("n", "k"), "u32"),
+    "obs_idx": (("k", "n"), "idx"),
+    "subj_idx": (("k", "n"), "idx"),
+    "inval_obs": (("k", "n"), "idx"),
+    "config_epoch": ((), "int32"),
+    "config_hi": ((), "uint32"),
+    "config_lo": ((), "uint32"),
+    "n_members": ((), "int32"),
+    "fd_count": (("n", "k"), "counter"),
+    "fd_hist": (("n", "k"), "hist"),
     "fd_fired": (("n", "k"), "bool"),
-    "fire_round": (("n", "k"), "i32"),
+    "fire_round": (("n", "k"), "round"),
     "join_pending": (("n",), "bool"),
-    "cohort_of": (("n",), "i32"),
-    "report_bits": (("c", "n"), "u32"),
+    "cohort_of": (("n",), "cohort"),
+    "report_bits": (("c", "n"), "report"),
     "seen_down": (("c",), "bool"),
     "released": (("c", "n"), "bool"),
     "announced": (("c",), "bool"),
     "prop_mask": (("c", "n"), "bool"),
-    "prop_hi": (("c",), "u32"),
-    "prop_lo": (("c",), "u32"),
-    "vote_hi": (("n",), "u32"),
-    "vote_lo": (("n",), "u32"),
+    "prop_hi": (("c",), "uint32"),
+    "prop_lo": (("c",), "uint32"),
+    "vote_hi": (("n",), "uint32"),
+    "vote_lo": (("n",), "uint32"),
     "vote_valid": (("n",), "bool"),
-    "rounds_undecided": ((), "i32"),
-    "cp_rnd_r": (("n",), "i32"),
-    "cp_rnd_i": (("n",), "i32"),
-    "cp_vrnd_r": (("n",), "i32"),
-    "cp_vrnd_i": (("n",), "i32"),
-    "cp_vval_src": (("n",), "i32"),
-    "classic_epoch": ((), "i32"),
-    "round_idx": ((), "i32"),
+    "rounds_undecided": ((), "counter"),
+    "cp_rnd_r": (("n",), "counter"),
+    "cp_rnd_i": (("n",), "idx"),
+    "cp_vrnd_r": (("n",), "counter"),
+    "cp_vrnd_i": (("n",), "idx"),
+    "cp_vval_src": (("n",), "cohort"),
+    "classic_epoch": ((), "counter"),
+    "round_idx": ((), "int32"),
     "retired": (("n",), "bool"),
     # FaultInputs
     "crashed": (("n",), "bool"),
     "probe_fail": (("n", "k"), "bool"),
     "rx_block": (("c", "n"), "bool"),
-    # StepEvents (the lanes it does not share with EngineState)
+}
+
+#: The StepEvents lanes it does not share with EngineState; fixed dtypes.
+EVENT_LANE_SPECS: Dict[str, Tuple[Tuple[str, ...], str]] = {
     "decided": ((), "bool"),
     "fast_decided": ((), "bool"),
     "winner_mask": (("n",), "bool"),
     "proposals_announced": (("c",), "bool"),
-    "alerts_emitted": ((), "i32"),
-    "total_votes": ((), "i32"),
-    "max_votes": ((), "i32"),
+    "alerts_emitted": ((), "int32"),
+    "total_votes": ((), "int32"),
+    "max_votes": ((), "int32"),
 }
 
-DTYPES = {"u32": torch.int32, "i32": torch.int32, "bool": torch.bool}
+#: Lane kinds whose values are unsigned bit patterns.
+UNSIGNED_KINDS = frozenset({"uint32", "hist", "report"})
+
+
+def lane_dtypes(cfg: "EngineConfig") -> Dict[str, str]:
+    """field -> numpy dtype name under ``cfg``'s policy, for every
+    EngineState and FaultInputs lane."""
+    pol = compaction_policy(cfg)._asdict()
+    return {field: pol.get(kind, kind) for field, (_, kind) in LANE_SPECS.items()}
+
+
+def lane_storage(cfg: "EngineConfig") -> Dict[str, torch.dtype]:
+    """field -> the torch dtype that stores it under ``cfg``'s policy."""
+    return {field: _narrow.STORAGE[name] for field, name in lane_dtypes(cfg).items()}
 
 
 class EngineState(NamedTuple):
     """Device state for one virtual cluster (all lanes padded to n slots;
-    see :data:`LANES` for shapes and kinds)."""
+    see :data:`LANE_SPECS` for shapes and kinds)."""
 
     key_hi: torch.Tensor
     key_lo: torch.Tensor
@@ -280,7 +385,7 @@ class TraceRing(NamedTuple):
 
 
 def lane_dims(cfg: EngineConfig) -> Dict[str, int]:
-    """The size of each shape symbol of :data:`LANES`,
+    """The size of each shape symbol of :data:`LANE_SPECS`,
     :data:`TELEMETRY_LANE_SPECS` and :data:`TRACE_LANE_SPECS` under ``cfg``."""
     return {"n": cfg.n, "k": cfg.k, "c": cfg.c, "b": TELEMETRY_BUCKETS, "r": cfg.trace}
 
@@ -361,11 +466,9 @@ def resolve_device(device=None) -> torch.device:
 
 def validate_config(cfg: EngineConfig) -> None:
     """The JAX package's config checks (with its ``VirtualCluster``
-    construction checks on ``trace``), plus the option not ported yet."""
-    if cfg.compact:
-        raise NotImplementedError(
-            "compact=1 is not ported yet (ROADMAP.md Queue 1 item 10, compaction)"
-        )
+    construction checks on ``trace``)."""
+    if cfg.compact not in (0, 1):
+        raise ValueError(f"compact must be 0 (wide) or 1 (compact), got {cfg.compact}")
     if cfg.trace and not cfg.telemetry:
         raise ValueError(
             "EngineConfig.trace requires telemetry: the round-trace ring "
@@ -398,16 +501,19 @@ def _i32(value: int, device) -> torch.Tensor:
 
 def initial_state(cfg: EngineConfig, key_hi, key_lo, id_hi, id_lo, alive) -> EngineState:
     """A configuration-consistent state from identity lanes (stored uint32
-    tensors) and the alive mask, all on one device."""
+    tensors) and the alive mask, all on one device, every lane at ``cfg``'s
+    policy dtype."""
     validate_config(cfg)
     dev = alive.device
     n, k, c = cfg.n, cfg.k, cfg.c
-    perm = ring_perms(key_hi, key_lo)
+    st = lane_storage(cfg)
+    # The one sort: every later topology is O(N) scans over these perms.
+    perm = ring_perms(key_hi, key_lo).to(st["ring_perm"])
     topo = ring_topology_from_perm(perm, alive)
     config_hi, config_lo = masked_set_hash(id_hi, id_lo, alive)
 
-    def zeros(shape, dtype=torch.int32):
-        return torch.zeros(shape, dtype=dtype, device=dev)
+    def zeros(field, shape):
+        return torch.zeros(shape, dtype=st[field], device=dev)
 
     return EngineState(
         key_hi=key_hi,
@@ -416,36 +522,203 @@ def initial_state(cfg: EngineConfig, key_hi, key_lo, id_hi, id_lo, alive) -> Eng
         id_hi=id_hi,
         id_lo=id_lo,
         alive=alive,
-        obs_idx=topo.obs_idx,
-        subj_idx=topo.subj_idx,
-        inval_obs=topo.obs_idx.clone(),
+        obs_idx=topo.obs_idx.to(st["obs_idx"]),
+        subj_idx=topo.subj_idx.to(st["subj_idx"]),
+        inval_obs=topo.obs_idx.to(st["inval_obs"]),
         config_epoch=_i32(0, dev),
         config_hi=config_hi,
         config_lo=config_lo,
         n_members=alive.sum(dtype=torch.int32),
-        fd_count=zeros((n, k)),
-        fd_hist=zeros((n, k)),
-        fd_fired=zeros((n, k), torch.bool),
-        fire_round=torch.full((n, k), FIRE_NEVER, dtype=torch.int32, device=dev),
-        join_pending=zeros((n,), torch.bool),
-        cohort_of=zeros((n,)),
-        report_bits=zeros((c, n)),
-        seen_down=zeros((c,), torch.bool),
-        released=zeros((c, n), torch.bool),
-        announced=zeros((c,), torch.bool),
-        prop_mask=zeros((c, n), torch.bool),
-        prop_hi=zeros((c,)),
-        prop_lo=zeros((c,)),
-        vote_hi=zeros((n,)),
-        vote_lo=zeros((n,)),
-        vote_valid=zeros((n,), torch.bool),
-        rounds_undecided=_i32(0, dev),
-        cp_rnd_r=zeros((n,)),
-        cp_rnd_i=zeros((n,)),
-        cp_vrnd_r=zeros((n,)),
-        cp_vrnd_i=zeros((n,)),
-        cp_vval_src=torch.full((n,), -1, dtype=torch.int32, device=dev),
-        classic_epoch=_i32(0, dev),
+        fd_count=zeros("fd_count", (n, k)),
+        fd_hist=zeros("fd_hist", (n, k)),
+        fd_fired=zeros("fd_fired", (n, k)),
+        fire_round=torch.full(
+            (n, k), compaction_policy(cfg).fire_never, dtype=st["fire_round"], device=dev
+        ),
+        join_pending=zeros("join_pending", (n,)),
+        cohort_of=zeros("cohort_of", (n,)),
+        report_bits=zeros("report_bits", (c, n)),
+        seen_down=zeros("seen_down", (c,)),
+        released=zeros("released", (c, n)),
+        announced=zeros("announced", (c,)),
+        prop_mask=zeros("prop_mask", (c, n)),
+        prop_hi=zeros("prop_hi", (c,)),
+        prop_lo=zeros("prop_lo", (c,)),
+        vote_hi=zeros("vote_hi", (n,)),
+        vote_lo=zeros("vote_lo", (n,)),
+        vote_valid=zeros("vote_valid", (n,)),
+        rounds_undecided=zeros("rounds_undecided", ()),
+        cp_rnd_r=zeros("cp_rnd_r", (n,)),
+        cp_rnd_i=zeros("cp_rnd_i", (n,)),
+        cp_vrnd_r=zeros("cp_vrnd_r", (n,)),
+        cp_vrnd_i=zeros("cp_vrnd_i", (n,)),
+        cp_vval_src=torch.full((n,), -1, dtype=st["cp_vval_src"], device=dev),
+        classic_epoch=zeros("classic_epoch", ()),
         round_idx=_i32(0, dev),
-        retired=zeros((n,), torch.bool),
+        retired=zeros("retired", (n,)),
     )
+
+
+# ---------------------------------------------------------------------------
+# Wide <-> compact converters
+# ---------------------------------------------------------------------------
+
+
+def _cast_lanes(tree, dtypes: Dict[str, str], fire_never_src: int, fire_never_out: int):
+    """Every lane of an EngineState or FaultInputs tree (one cluster's or a
+    fleet's) cast by VALUE to ``dtypes`` (the JAX package's ``astype``,
+    wrapping), the fire-round sentinel mapped from ``fire_never_src`` to
+    ``fire_never_out``. An unsigned lane is read by its own width
+    (:func:`rapid_tpu_torch._narrow.unsigned`), a signed one by sign."""
+    out = {}
+    for field, value in tree._asdict().items():
+        kind = LANE_SPECS[field][1]
+        dt = _narrow.STORAGE[dtypes[field]]
+        wide = _narrow.unsigned(value) if kind in UNSIGNED_KINDS else value.to(torch.int64)
+        cast = _narrow.keep_bits(wide, dt)
+        if field == "fire_round":
+            cast = torch.where(value == fire_never_src, _narrow.keep_bits(
+                torch.tensor(fire_never_out, device=value.device), dt), cast)
+        out[field] = cast
+    return type(tree)(**out)
+
+
+def widen_state(cfg: EngineConfig, state):
+    """A compact state (or fault masks) as the wide layout, the sentinel
+    mapped to :data:`FIRE_NEVER`; the identity on a wide one. So a compact
+    run is compared with a wide one as ``widen_state(compact_cfg, state)``
+    against the wide state, lane by lane."""
+    return _cast_lanes(
+        state, lane_dtypes(cfg._replace(compact=0)), compaction_policy(cfg).fire_never, FIRE_NEVER
+    )
+
+
+def narrow_state(cfg: EngineConfig, state):
+    """A WIDE state (or fault masks) at ``cfg``'s policy dtypes, the inverse
+    of :func:`widen_state` within the envelopes. The casts wrap, as device
+    casts do: check a state with :func:`validate_envelope` first."""
+    return _cast_lanes(state, lane_dtypes(cfg), FIRE_NEVER, compaction_policy(cfg).fire_never)
+
+
+def validate_envelope(cfg: EngineConfig, state: EngineState) -> None:
+    """Host-side (reading) check that a WIDE state fits ``cfg``'s compact
+    policy: counters within int16, ``round_idx`` within
+    :data:`ROUND_ENVELOPE`, fire rounds real or the sentinel. Raises
+    ValueError naming the first lane out of range."""
+    if compaction_policy(cfg) == WIDE_POLICY:
+        return
+    limits = {
+        "fd_count": (-(1 << 15), (1 << 15) - 1),
+        "cp_rnd_r": (0, (1 << 15) - 1),
+        "cp_vrnd_r": (0, (1 << 15) - 1),
+        "classic_epoch": (0, (1 << 15) - 1),
+        "rounds_undecided": (0, (1 << 15) - 1),
+        "round_idx": (0, ROUND_ENVELOPE),
+    }
+    for field, (lo, hi) in limits.items():
+        lane = getattr(state, field)
+        if lane.numel():
+            low, high = int(lane.min()), int(lane.max())
+            if low < lo or high > hi:
+                raise ValueError(
+                    f"state lane {field!r} range [{low}, {high}] "
+                    f"exceeds the compact envelope [{lo}, {hi}]"
+                )
+    real = state.fire_round[state.fire_round != FIRE_NEVER]
+    if real.numel():
+        low, high = int(real.min()), int(real.max())
+        if low < 0 or high > ROUND_ENVELOPE:
+            raise ValueError(
+                f"fire_round carries a non-sentinel value outside "
+                f"[0, {ROUND_ENVELOPE}]: [{low}, {high}]"
+            )
+
+
+# ---------------------------------------------------------------------------
+# Bit-packed bool masks
+# ---------------------------------------------------------------------------
+
+#: bool lane -> the slot axis it packs 8 to a byte along.
+PACKED_MASK_AXES: Dict[str, int] = {
+    "alive": 0, "join_pending": 0, "vote_valid": 0, "retired": 0,
+    "fd_fired": 0, "released": 1, "prop_mask": 1,
+    "crashed": 0, "probe_fail": 0, "rx_block": 1,
+}
+
+
+def pack_bool(mask: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """A bool tensor packed 8 to a uint8 byte along ``axis``, little-endian
+    in the byte (element i is bit i % 8 of byte i // 8). The axis length
+    must be a multiple of 8."""
+    mask = mask.to(torch.bool)
+    size = mask.shape[axis]
+    if size % 8:
+        raise ValueError(f"pack_bool axis {axis} has length {size}, not a multiple of 8")
+    moved = torch.movedim(mask, axis, -1)
+    grouped = moved.reshape(*moved.shape[:-1], size // 8, 8).to(torch.int32)
+    weights = 1 << torch.arange(8, dtype=torch.int32, device=mask.device)
+    words = (grouped * weights).sum(-1, dtype=torch.int32).to(torch.uint8)
+    return torch.movedim(words, -1, axis)
+
+
+def unpack_bool(words: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """Inverse of :func:`pack_bool`: uint8 bytes -> the bool mask, 8 times
+    as long along ``axis``."""
+    moved = torch.movedim(words.to(torch.uint8), axis, -1)
+    shifts = torch.arange(8, dtype=torch.uint8, device=words.device)
+    bits = (moved[..., None] >> shifts) & 1
+    flat = bits.reshape(*moved.shape[:-1], moved.shape[-1] * 8)
+    return torch.movedim(flat, -1, axis).to(torch.bool)
+
+
+def pack_masks(tree):
+    """An EngineState or FaultInputs tree with every lane of
+    :data:`PACKED_MASK_AXES` packed along its slot axis (``[n]`` ->
+    ``[n/8]``, ``[c, n]`` -> ``[c, n/8]``, ``[n, k]`` -> ``[n/8, k]``).
+    Needs ``n % 8 == 0``."""
+    return type(tree)(**{
+        field: pack_bool(value, PACKED_MASK_AXES[field]) if field in PACKED_MASK_AXES else value
+        for field, value in tree._asdict().items()
+    })
+
+
+def unpack_masks(tree):
+    """Inverse of :func:`pack_masks`."""
+    return type(tree)(**{
+        field: unpack_bool(value, PACKED_MASK_AXES[field]) if field in PACKED_MASK_AXES else value
+        for field, value in tree._asdict().items()
+    })
+
+
+# ---------------------------------------------------------------------------
+# Sizing
+# ---------------------------------------------------------------------------
+
+
+def state_bytes_total(cfg: EngineConfig, packed: bool = False) -> int:
+    """At-rest bytes of one cluster's EngineState and FaultInputs under
+    ``cfg``'s policy; ``packed`` prices the bit-packed bool masks. Equal to
+    :func:`pytree_nbytes` of a real state and fault tree."""
+    dims = lane_dims(cfg)
+    dtypes = lane_dtypes(cfg)
+    total = 0
+    for field, (shape, _) in LANE_SPECS.items():
+        elems = math.prod(dims[s] for s in shape)
+        if packed and field in PACKED_MASK_AXES:
+            total += (elems + 7) // 8
+        else:
+            total += elems * np.dtype(dtypes[field]).itemsize
+    return total
+
+
+def state_bytes_per_member(cfg: EngineConfig, packed: bool = False) -> float:
+    """Per-slot state bytes (:func:`state_bytes_total` over n)."""
+    return state_bytes_total(cfg, packed=packed) / cfg.n
+
+
+def pytree_nbytes(tree) -> int:
+    """Bytes of the tensors of a lane tree (a NamedTuple of tensors; None
+    for a plane that is off)."""
+    if tree is None:
+        return 0
+    return sum(lane.numel() * lane.element_size() for lane in tree)

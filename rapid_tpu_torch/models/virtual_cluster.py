@@ -1,6 +1,7 @@
 """A whole Rapid-style cluster of N virtual endpoints as one device program
 per round (port of ``rapid_tpu/models/virtual_cluster.py``, single cluster,
-with the device telemetry plane and the round-trace ring).
+in the wide or the compact layout, with the device telemetry plane and the
+round-trace ring).
 
 One round, for every virtual node at once: probe tick -> edge alerts ->
 cohort delivery -> watermark cut detection -> fast-round votes -> quorum
@@ -36,6 +37,14 @@ With ``telemetry=True`` (and ``trace=R``) the drivers carry
 round writes them and never branches on them, so results are the same with
 the planes on or off, and no read is added: the lanes reach the host only
 through :meth:`VirtualCluster.sync`.
+
+Under ``compact=1`` every lane is stored at its policy dtype
+(``models/state.compaction_policy``) and the round stores every result at
+the dtype of the lane it replaces, as the JAX package does: torch promotes
+silently (``torch.where(m, int16_lane, int32_tensor)`` is int32), so every
+store of an int32 value into a narrow lane casts explicitly, and the
+bitmask lanes go through :mod:`rapid_tpu_torch._narrow`. The delivery
+kernel still emits uint32 words; they are narrowed into the report lane.
 """
 
 from __future__ import annotations
@@ -45,9 +54,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from rapid_tpu_torch import _host, _u32
+from rapid_tpu_torch import _host, _narrow, _u32
 from rapid_tpu_torch.models.state import (
-    FIRE_NEVER,
     TELEMETRY_BUCKETS,
     EngineConfig,
     EngineState,
@@ -55,9 +63,11 @@ from rapid_tpu_torch.models.state import (
     StepEvents,
     TelemetryLanes,
     TraceRing,
+    compaction_policy,
     initial_state,
     initial_telemetry,
     initial_trace,
+    lane_storage,
     map_lanes,
     resolve_device,
     validate_config,
@@ -66,7 +76,11 @@ from rapid_tpu_torch.ops.consensus import tally_candidates, undecided_log2_bucke
 from rapid_tpu_torch.ops.cut_detection import cohort_watermark_pass, telemetry_cut_masks
 from rapid_tpu_torch.ops.hashing import masked_set_hash
 from rapid_tpu_torch.ops.kernels import delivery_new_bits, per_batch, popcount32
-from rapid_tpu_torch.ops.rings import predecessor_of_keys, ring_topology_from_perm
+from rapid_tpu_torch.ops.rings import (
+    endpoint_ring_keys,
+    predecessor_of_keys,
+    ring_topology_from_perm,
+)
 from rapid_tpu_torch.utils import engine_telemetry
 
 
@@ -123,7 +137,7 @@ def _edge_masks(cfg: EngineConfig, state: EngineState, faults: FaultInputs):
 def _fd_tick(cfg: EngineConfig, state: EngineState, faults: FaultInputs, observer_active):
     """Every observer probes its subjects; edges past the failure threshold
     fire one DOWN alert. Counter mode (``fd_window == 0``) or the windowed
-    policy (a uint32 bit-history per edge)."""
+    policy (a bit-history per edge, at the history lane's own width)."""
     alive = state.alive[:, :, None]
     subject_down = faults.crashed[:, :, None] | faults.probe_fail
     probe_failed = observer_active & subject_down & alive
@@ -132,8 +146,8 @@ def _fd_tick(cfg: EngineConfig, state: EngineState, faults: FaultInputs, observe
         probed = observer_active & alive
         fd_count = torch.where(probed, state.fd_count + 1, state.fd_count)
         window_mask = (1 << cfg.fd_window) - 1
-        shifted = ((_u32.widen(state.fd_hist) << 1) | probe_failed.to(torch.int64)) & window_mask
-        fd_hist = torch.where(probed, _u32.narrow(shifted), state.fd_hist)
+        shifted = ((_narrow.unsigned(state.fd_hist) << 1) | probe_failed) & window_mask
+        fd_hist = torch.where(probed, _narrow.keep_bits(shifted, state.fd_hist.dtype), state.fd_hist)
         past_threshold = (popcount32(fd_hist) >= threshold) & (fd_count >= cfg.fd_window)
     else:
         fd_count = torch.where(probe_failed, state.fd_count + 1, state.fd_count)
@@ -144,14 +158,17 @@ def _fd_tick(cfg: EngineConfig, state: EngineState, faults: FaultInputs, observe
 
 
 def _deliver_alerts(cfg: EngineConfig, state: EngineState, fire_round, blocked_rows):
-    """Per-cohort delivered alert bitmasks ``[t, c, n]``: one launch of the
-    delivery kernel for every tenant on a card, its plain version on the
-    CPU."""
-    age_kn = (state.round_idx[:, None, None] - fire_round.transpose(1, 2)).contiguous()
-    return delivery_new_bits(
+    """Per-cohort delivered alert bitmasks ``[t, c, n]`` at the report
+    lane's dtype: one launch of the delivery kernel for every tenant on a
+    card, its plain version on the CPU. Ages are int32 whatever the fire
+    round's dtype (an unfired edge's sentinel age stays negative), and the
+    kernel's uint32 words are narrowed on store."""
+    age_kn = (state.round_idx[:, None, None] - fire_round.transpose(1, 2).to(torch.int32)).contiguous()
+    words = delivery_new_bits(
         blocked_rows, age_kn, state.config_epoch, cfg.k, cfg.c,
         cfg.delivery_spread, cfg.delivery_prob_permille,
     )
+    return _narrow.keep_bits(words, state.report_bits.dtype)
 
 
 def _rotation_seed_w(epoch_w: torch.Tensor, j: int) -> torch.Tensor:
@@ -181,7 +198,7 @@ def _classic_attempt(cfg: EngineConfig, state: EngineState, faults: FaultInputs,
         return (ar > br) | ((ar == br) & (ai > bi))
 
     coords = []
-    epoch_w = _u32.widen(state.classic_epoch)
+    epoch_w = _u32.widen(state.classic_epoch.to(torch.int32))
     for j in range(cfg.concurrent_coordinators):
         pick = _u32.mix32_w(_rotation_seed_w(epoch_w, j))
         target = torch.where(n_active > 0, pick % n_active.clamp(min=1).to(torch.int64) + 1, 1)
@@ -201,7 +218,7 @@ def _classic_attempt(cfg: EngineConfig, state: EngineState, faults: FaultInputs,
         coord_col = coord[:, None, None].expand(t, c, 1)
         rx_from_coord = torch.gather(faults.rx_block, 2, coord_col)[:, :, 0]  # [t, c]
         hears_coord = active & v & ~_take(rx_from_coord, state.cohort_of)
-        coord_row = coord_cohort.clamp(0, c - 1)[:, None, None].expand(t, 1, n)
+        coord_row = coord_cohort.clamp(0, c - 1).to(torch.int64)[:, None, None].expand(t, 1, n)
         coord_hears = active & v & ~torch.gather(faults.rx_block, 1, coord_row)[:, 0]
         coord_i = coord[:, None]
         promise = hears_coord & rank_gt(round_num, coord_i, cp_rnd_r, cp_rnd_i)
@@ -226,7 +243,7 @@ def _classic_attempt(cfg: EngineConfig, state: EngineState, faults: FaultInputs,
     for coord_i, _, promise, _, _ in per:
         bump = promise & rank_gt(round_num, coord_i, rnd1_r, rnd1_i)
         rnd1_r = torch.where(bump, round_num, rnd1_r)
-        rnd1_i = torch.where(bump, coord_i.to(torch.int32), rnd1_i)
+        rnd1_i = torch.where(bump, coord_i.to(rnd1_i.dtype), rnd1_i)
 
     acc_r, acc_i, acc_src = cp_vrnd_r, cp_vrnd_i, cp_vval_src
     fb_decided = torch.zeros((t,), dtype=torch.bool, device=dev)
@@ -242,8 +259,8 @@ def _classic_attempt(cfg: EngineConfig, state: EngineState, faults: FaultInputs,
         fb_decided = fb_decided | won
         chosen_winner = torch.where(won, chosen, chosen_winner)
         acc_r = torch.where(can_accept, round_num, acc_r)
-        acc_i = torch.where(can_accept, coord_i.to(torch.int32), acc_i)
-        acc_src = torch.where(can_accept, chosen[:, None], acc_src)
+        acc_i = torch.where(can_accept, coord_i.to(acc_i.dtype), acc_i)
+        acc_src = torch.where(can_accept, chosen[:, None].to(acc_src.dtype), acc_src)
         any_touch = any_touch | promise | can_accept
 
     return (
@@ -288,13 +305,18 @@ def _compute_round(
 
     # 1. Failure-detector tick.
     fd_count, fd_hist, fd_fired, fire = _fd_tick(cfg, state, faults, observer_active)
-    fire_round = torch.where(fire, state.round_idx[:, None, None], state.fire_round)
+    fire_round = torch.where(
+        fire, state.round_idx[:, None, None].to(state.fire_round.dtype), state.fire_round
+    )
     alerts_emitted = fire.flatten(1).sum(-1, dtype=torch.int32)
 
     # 2. Delivery, zeroed once every fired alert has matured (the JAX
     #    version skips the work with lax.cond; the select gives the same
     #    bits, since matured alerts are already merged into report_bits).
-    last_mature = torch.where(fd_fired, fire_round, -1).flatten(1).amax(-1) + cfg.delivery_spread
+    last_mature = (
+        torch.where(fd_fired, fire_round, -1).flatten(1).amax(-1).to(torch.int32)
+        + cfg.delivery_spread
+    )
     need_delivery = fd_fired.flatten(1).any(-1) & (state.round_idx <= last_mature)
     delivered = _deliver_alerts(cfg, state, fire_round, blocked_rows)
     new_bits = torch.where(need_delivery[:, None, None], delivered, 0)
@@ -462,7 +484,7 @@ def _compute_round(
         tr_tally=put(trace.tr_tally, tally_at_decision),
         tr_path=put(trace.tr_path, fb_decided.to(torch.int32) * 2 + fast_decided),
         tr_conflict=put(trace.tr_conflict, stalled.to(torch.int32)),
-        tr_undecided=put(trace.tr_undecided, rounds_undecided),
+        tr_undecided=put(trace.tr_undecided, rounds_undecided.to(torch.int32)),
         tr_cursor=trace.tr_cursor + 1,
         tr_wraps=trace.tr_wraps + (slot == cfg.trace - 1),
     )
@@ -472,53 +494,55 @@ def _compute_round(
 def apply_view_change_impl(cfg: EngineConfig, state: EngineState, winner_mask) -> EngineState:
     """Commit each tenant's decided cut (``winner_mask [t, n]``): flip
     membership, re-derive ring topology, reset the per-configuration
-    state. Joiners not in the cut stay pending with their fired UP edges
-    re-stamped to round 0."""
+    state, every lane at ``cfg``'s policy dtype. Joiners not in the cut
+    stay pending with their fired UP edges re-stamped to round 0."""
     n, k, c = cfg.n, cfg.k, cfg.c
     t = state.alive.shape[0]
     dev = state.alive.device
+    st = lane_storage(cfg)
     alive2 = state.alive ^ winner_mask
     topo = ring_topology_from_perm(state.ring_perm, alive2)
     config_hi, config_lo = masked_set_hash(state.id_hi, state.id_lo, alive2)
     still_pending = state.join_pending & ~winner_mask
     fd_fired2 = state.fd_fired & still_pending[:, :, None]
 
-    def zeros(shape, dtype=torch.int32):
-        return torch.zeros((t,) + shape, dtype=dtype, device=dev)
+    def zeros(field, shape):
+        return torch.zeros((t,) + shape, dtype=st[field], device=dev)
 
+    obs_idx = topo.obs_idx.to(st["obs_idx"])
     return state._replace(
         alive=alive2,
         retired=state.retired | (winner_mask & state.alive),
-        obs_idx=torch.where(still_pending[:, None, :], state.obs_idx, topo.obs_idx),
-        subj_idx=topo.subj_idx,
-        inval_obs=torch.where(still_pending[:, None, :], state.inval_obs, topo.obs_idx),
+        obs_idx=torch.where(still_pending[:, None, :], state.obs_idx, obs_idx),
+        subj_idx=topo.subj_idx.to(st["subj_idx"]),
+        inval_obs=torch.where(still_pending[:, None, :], state.inval_obs, obs_idx),
         config_epoch=state.config_epoch + 1,
         config_hi=config_hi,
         config_lo=config_lo,
         n_members=alive2.sum(-1, dtype=torch.int32),
-        fd_count=zeros((n, k)),
-        fd_hist=zeros((n, k)),
+        fd_count=zeros("fd_count", (n, k)),
+        fd_hist=zeros("fd_hist", (n, k)),
         fd_fired=fd_fired2,
-        fire_round=torch.where(fd_fired2, 0, FIRE_NEVER).to(torch.int32),
+        fire_round=torch.where(fd_fired2, 0, compaction_policy(cfg).fire_never).to(st["fire_round"]),
         join_pending=still_pending,
-        report_bits=zeros((c, n)),
-        seen_down=zeros((c,), torch.bool),
-        released=zeros((c, n), torch.bool),
-        announced=zeros((c,), torch.bool),
-        prop_mask=zeros((c, n), torch.bool),
-        prop_hi=zeros((c,)),
-        prop_lo=zeros((c,)),
-        vote_hi=zeros((n,)),
-        vote_lo=zeros((n,)),
-        vote_valid=zeros((n,), torch.bool),
-        rounds_undecided=zeros(()),
-        cp_rnd_r=zeros((n,)),
-        cp_rnd_i=zeros((n,)),
-        cp_vrnd_r=zeros((n,)),
-        cp_vrnd_i=zeros((n,)),
-        cp_vval_src=torch.full((t, n), -1, dtype=torch.int32, device=dev),
-        classic_epoch=zeros(()),
-        round_idx=zeros(()),
+        report_bits=zeros("report_bits", (c, n)),
+        seen_down=zeros("seen_down", (c,)),
+        released=zeros("released", (c, n)),
+        announced=zeros("announced", (c,)),
+        prop_mask=zeros("prop_mask", (c, n)),
+        prop_hi=zeros("prop_hi", (c,)),
+        prop_lo=zeros("prop_lo", (c,)),
+        vote_hi=zeros("vote_hi", (n,)),
+        vote_lo=zeros("vote_lo", (n,)),
+        vote_valid=zeros("vote_valid", (n,)),
+        rounds_undecided=zeros("rounds_undecided", ()),
+        cp_rnd_r=zeros("cp_rnd_r", (n,)),
+        cp_rnd_i=zeros("cp_rnd_i", (n,)),
+        cp_vrnd_r=zeros("cp_vrnd_r", (n,)),
+        cp_vrnd_i=zeros("cp_vrnd_i", (n,)),
+        cp_vval_src=torch.full((t, n), -1, dtype=st["cp_vval_src"], device=dev),
+        classic_epoch=zeros("classic_epoch", ()),
+        round_idx=zeros("round_idx", ()),
     )
 
 
@@ -649,15 +673,17 @@ def sync_checksum(state: EngineState, faults: FaultInputs) -> torch.Tensor:
     package's ``sync_checksum`` computes it (every sum wraps modulo 2**32):
     a 0-d int64 tensor holding the uint32 value. A stored uint32 lane sums
     as its int32 bit patterns: each differs from its unsigned value by a
-    multiple of 2**32, so the sums agree modulo 2**32."""
+    multiple of 2**32, so the sums agree modulo 2**32. The report lane sums
+    by its own width (a narrow one's bits are not a multiple of 2**32
+    away), the signed index and counter lanes by value."""
     total = sum(
         lane.sum(dtype=torch.int64)
         for lane in (
             state.key_hi, state.key_lo, state.id_hi, state.id_lo, state.obs_idx,
-            state.fd_count, state.report_bits, state.alive, faults.crashed, faults.probe_fail,
+            state.fd_count, state.alive, faults.crashed, faults.probe_fail,
         )
     )
-    return total & _u32.MASK
+    return (total + _narrow.unsigned(state.report_bits).sum()) & _u32.MASK
 
 
 class VirtualCluster:
@@ -709,13 +735,20 @@ class VirtualCluster:
     ) -> "VirtualCluster":
         """Synthetic cluster with random 64-bit slot identities, drawn from
         numpy with the JAX package's seeds, so both packages build the same
-        state. ``telemetry=True`` carries the device telemetry plane and
-        ``trace=R`` (with telemetry) the ring of the last R rounds; read
-        them through :meth:`sync` and :attr:`activity` / :attr:`trace`."""
+        state. ``compact=True`` stores the state at the config's narrow
+        dtypes (``models/state.compaction_policy``): the same protocol, bit
+        for bit, in fewer bytes per member. ``telemetry=True`` carries the
+        device telemetry plane and ``trace=R`` (with telemetry) the ring of
+        the last R rounds; read them through :meth:`sync` and
+        :attr:`activity` / :attr:`trace`."""
         n = n_slots if n_slots is not None else n_members
         if n < n_members:
             raise ValueError(f"n_slots ({n}) < n_members ({n_members})")
-        cfg = EngineConfig(
+        rng = np.random.default_rng(seed)
+        key_hi = rng.integers(0, 2**32, size=(k, n), dtype=np.uint32)
+        key_lo = rng.integers(0, 2**32, size=(k, n), dtype=np.uint32)
+        return cls._build(
+            key_hi, key_lo, rng, n_members, device,
             n=n, k=k, h=h, l=l, c=cohorts, fd_threshold=fd_threshold,
             use_pallas=use_pallas, fallback_rounds=fallback_rounds,
             delivery_spread=delivery_spread,
@@ -727,11 +760,73 @@ class VirtualCluster:
             telemetry=int(telemetry),
             trace=int(trace),
         )
+
+    @classmethod
+    def from_endpoints(
+        cls,
+        endpoints: Sequence,
+        n_slots: Optional[int] = None,
+        k: int = 10,
+        h: int = 9,
+        l: int = 4,
+        cohorts: int = 2,
+        fd_threshold: int = 3,
+        use_pallas: bool = False,
+        fallback_rounds: int = 8,
+        delivery_spread: int = 0,
+        concurrent_coordinators: int = 1,
+        fd_window: int = 0,
+        delivery_prob_permille: int = 1000,
+        pallas_lanes: int = 128,
+        n_members: Optional[int] = None,
+        topology: str = "native",
+        compact: bool = False,
+        telemetry: bool = False,
+        trace: int = 0,
+        device=None,
+    ) -> "VirtualCluster":
+        """A cluster of real endpoints (objects with ``.hostname`` and
+        ``.port``) with the host view's ring keys
+        (``ops.rings.endpoint_ring_keys``), so the engine's rings are the
+        host view's, bit for bit. The first ``n_members`` endpoints (default
+        all) start as members; the rest are keyed slots reserved for a later
+        :meth:`inject_join_wave`, which admits them where the host view
+        would. Slots past the endpoints carry zero keys. Identity lanes are
+        drawn from ``default_rng(1234)``, as the JAX package draws them.
+        Only the native topology is accepted."""
+        if n_members is None:
+            n_members = len(endpoints)
+        if not 0 < n_members <= len(endpoints):
+            raise ValueError(f"n_members must be in [1, {len(endpoints)}], got {n_members}")
+        n = n_slots if n_slots is not None else len(endpoints)
+        key_hi = np.zeros((k, n), dtype=np.uint32)
+        key_lo = np.zeros((k, n), dtype=np.uint32)
+        key_hi[:, : len(endpoints)], key_lo[:, : len(endpoints)] = endpoint_ring_keys(
+            endpoints, k, topology=topology
+        )
+        return cls._build(
+            key_hi, key_lo, np.random.default_rng(1234), n_members, device,
+            n=n, k=k, h=h, l=l, c=cohorts, fd_threshold=fd_threshold,
+            use_pallas=use_pallas, fallback_rounds=fallback_rounds,
+            delivery_spread=delivery_spread,
+            concurrent_coordinators=concurrent_coordinators,
+            fd_window=fd_window,
+            delivery_prob_permille=delivery_prob_permille,
+            pallas_lanes=pallas_lanes,
+            compact=int(compact),
+            telemetry=int(telemetry),
+            trace=int(trace),
+        )
+
+    @classmethod
+    def _build(cls, key_hi, key_lo, rng, n_members, device, **config) -> "VirtualCluster":
+        """The cluster of ring keys ``key_hi``/``key_lo`` (numpy uint32
+        ``[k, n]``) with identity lanes drawn next from ``rng`` and the
+        first ``n_members`` slots alive, on ``device``."""
+        cfg = EngineConfig(**config)
         validate_config(cfg)
         dev = resolve_device(device)
-        rng = np.random.default_rng(seed)
-        key_hi = rng.integers(0, 2**32, size=(k, n), dtype=np.uint32)
-        key_lo = rng.integers(0, 2**32, size=(k, n), dtype=np.uint32)
+        n = cfg.n
         id_hi = rng.integers(0, 2**32, size=(n,), dtype=np.uint32)
         id_lo = rng.integers(0, 2**32, size=(n,), dtype=np.uint32)
         alive = torch.zeros((n,), dtype=torch.bool, device=dev)
@@ -772,13 +867,16 @@ class VirtualCluster:
         self._set_crashed(self._slot_index(slots), False)
 
     def _stamp_fired_edges(self, idx: torch.Tensor, edge_mask: torch.Tensor) -> None:
-        """Mark (slot, ring) edges ``[j, k]`` as fired at the current round;
+        """Mark (slot, ring) edges ``[j, k]`` as fired at the current round
+        (at the fire-round lane's dtype, the policy's sentinel elsewhere);
         the round body then applies rx-blocks and delivery delays."""
         state = self.state
+        rdt = state.fire_round.dtype
         fd_fired = state.fd_fired.clone()
         fire_round = state.fire_round.clone()
         fd_fired[idx] = edge_mask
-        fire_round[idx] = torch.where(edge_mask, state.round_idx, FIRE_NEVER).to(torch.int32)
+        fire_never = compaction_policy(self.cfg).fire_never
+        fire_round[idx] = torch.where(edge_mask, state.round_idx.to(rdt), fire_never).to(rdt)
         self.state = state._replace(fd_fired=fd_fired, fire_round=fire_round)
 
     def initiate_leave(self, slots: Sequence[int]) -> None:
@@ -787,7 +885,7 @@ class VirtualCluster:
         responding."""
         idx = self._slot_index(slots)
         obs_idx = self.state.obs_idx.clone()
-        obs_idx[:, idx] = idx.to(torch.int32)[None, :].expand(self.cfg.k, -1)
+        obs_idx[:, idx] = idx.to(obs_idx.dtype)[None, :].expand(self.cfg.k, -1)
         self.state = self.state._replace(obs_idx=obs_idx)
         self._stamp_fired_edges(
             idx, torch.ones((len(idx), self.cfg.k), dtype=torch.bool, device=self.device)
@@ -800,10 +898,17 @@ class VirtualCluster:
         self.faults = self.faults._replace(probe_fail=arr)
 
     def stagger_fd_counts(self, rng: np.random.Generator, spread_rounds: int) -> None:
-        """Randomize per-edge detection latency (negative initial counters),
-        drawn from ``rng`` exactly as the JAX package draws them."""
+        """Randomize per-edge detection latency (negative initial counters
+        at the counter dtype), drawn from ``rng`` exactly as the JAX package
+        draws them. A spread the counter dtype cannot hold raises."""
+        cdt = np.dtype(compaction_policy(self.cfg).counter)
+        if spread_rounds >= np.iinfo(cdt).max:
+            raise ValueError(
+                f"spread_rounds {spread_rounds} exceeds the fd_count "
+                f"envelope of the {cdt.name} compaction policy"
+            )
         offsets = rng.integers(0, spread_rounds + 1, size=(self.cfg.n, self.cfg.k))
-        fd_count = torch.from_numpy((-offsets).astype(np.int32)).to(self.device)
+        fd_count = torch.from_numpy((-offsets).astype(cdt)).to(self.device)
         self.state = self.state._replace(fd_count=fd_count)
 
     def inject_join_wave(self, slots: Sequence[int], check_admissible: bool = True) -> None:
@@ -829,13 +934,15 @@ class VirtualCluster:
         obs_idx = state.obs_idx.clone()
         inval_obs = state.inval_obs.clone()
         join_pending[idx] = True
-        obs_idx[:, idx] = pred
-        inval_obs[:, idx] = pred
+        obs_idx[:, idx] = pred.to(obs_idx.dtype)
+        inval_obs[:, idx] = pred.to(inval_obs.dtype)
         self.state = state._replace(join_pending=join_pending, obs_idx=obs_idx, inval_obs=inval_obs)
         self._stamp_fired_edges(idx, (pred >= 0).T)
 
     def assign_cohorts(self, cohort_of: np.ndarray) -> None:
-        arr = torch.from_numpy(np.array(cohort_of, dtype=np.int32)).to(self.device)
+        """Set every slot's receiver cohort (stored at the cohort dtype)."""
+        cdt = np.dtype(compaction_policy(self.cfg).cohort)
+        arr = torch.from_numpy(np.array(cohort_of, dtype=cdt)).to(self.device)
         self.state = self.state._replace(cohort_of=arr)
 
     def assign_cohorts_roundrobin(self) -> None:
@@ -848,7 +955,11 @@ class VirtualCluster:
         arr = torch.from_numpy(np.array(rx_block, dtype=bool)).to(self.device)
         self.faults = self.faults._replace(rx_block=arr)
         self.state = self.state._replace(
-            fire_round=torch.where(self.state.fd_fired, self.state.round_idx, self.state.fire_round)
+            fire_round=torch.where(
+                self.state.fd_fired,
+                self.state.round_idx.to(self.state.fire_round.dtype),
+                self.state.fire_round,
+            )
         )
 
     # -- execution ------------------------------------------------------

@@ -3,7 +3,12 @@
 
 - :func:`popcount32` and :func:`watermark_merge_classify`: plain torch, as
   they are plain jnp in the JAX package (its Mosaic watermark kernel was
-  measured slower than XLA's fusion and deleted).
+  measured slower than XLA's fusion and deleted). Both keep a bitmask lane
+  at its own width (uint8, uint16 as int16 bits, or uint32 as int32 bits;
+  :mod:`rapid_tpu_torch._narrow`): the merge stays at the lane's dtype,
+  the tally counts at int32.
+- :func:`reports_matrix_to_bits` / :func:`bits_to_reports_matrix`: a
+  ``[..., n, k]`` bool report matrix and ``[..., n]`` ring bitmasks.
 - :func:`delivery_new_bits`: the alert-delivery kernel, CUDA C++ for
   Hopper in ``csrc/delivery.cu`` (it replaces the Pallas kernel
   ``delivery_new_bits_pallas``), with its plain version
@@ -22,13 +27,14 @@ import functools
 
 import torch
 
-from rapid_tpu_torch import _build, _u32
+from rapid_tpu_torch import _build, _narrow, _u32
 
 
 def popcount32(v: torch.Tensor) -> torch.Tensor:
-    """Set bits of stored uint32 lanes as int32 (Hacker's Delight 5-1 on
-    the widened values)."""
-    v = _u32.widen(v)
+    """Set bits of a stored bitmask lane of any width as int32 (Hacker's
+    Delight 5-1 on the values widened by the lane's own width, so an int16
+    lane holding uint16 bits counts at most 16)."""
+    v = _narrow.unsigned(v)
     v = v - ((v >> 1) & 0x55555555)
     v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
     v = (v + (v >> 4)) & 0x0F0F0F0F
@@ -57,6 +63,20 @@ def watermark_merge_classify(old_bits, new_bits, subject_mask, h, l):
     cls = torch.where(stable, 2, torch.where(flux, 1, 0)).to(torch.int32)
     return merged, cls
 
+
+def reports_matrix_to_bits(reports: torch.Tensor) -> torch.Tensor:
+    """``[..., n, k]`` bool report matrix -> ``[..., n]`` stored uint32 ring
+    bitmasks (bit r = ring r reported)."""
+    k = reports.shape[-1]
+    weights = 1 << torch.arange(k, dtype=torch.int64, device=reports.device)
+    return _u32.narrow((reports.to(torch.int64) * weights).sum(-1))
+
+
+def bits_to_reports_matrix(bits: torch.Tensor, k: int) -> torch.Tensor:
+    """``[..., n]`` stored ring bitmasks (any width) -> ``[..., n, k]`` bool
+    report matrix."""
+    shifts = torch.arange(k, dtype=torch.int64, device=bits.device)
+    return ((_narrow.unsigned(bits)[..., None] >> shifts) & 1).to(torch.bool)
 
 
 

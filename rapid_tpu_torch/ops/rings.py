@@ -1,21 +1,26 @@
 """K-ring expander topology (port of ``rapid_tpu/ops/rings.py``).
 
 Every slot carries K static 64-bit ring keys as stored uint32 (hi, lo)
-lanes. The key order of each ring is sorted ONCE (:func:`ring_perms`);
-every topology after that is O(N) scans over those permutations
-(:func:`ring_topology_from_perm`, which also takes a fleet's ``[t, K, N]``
-permutations and ``[t, N]`` masks). Index tables are int32 like the JAX
-wide layout; gathers index with int64 copies of them.
+lanes: for real endpoints the host view's keys (:func:`endpoint_ring_keys`,
+hashed on the host). The key order of each ring is sorted ONCE
+(:func:`ring_perms`); every topology after that is O(N) scans over those
+permutations (:func:`ring_topology_from_perm`, which also takes a fleet's
+``[t, K, N]`` permutations and ``[t, N]`` masks); :func:`ring_topology`
+sorts afresh and gives the same tables. The tables come back int32, as in
+the JAX package, and a compact caller narrows them on store; permutations
+of any index dtype are widened to int64 before they gather or scatter.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
+import numpy as np
 import torch
 
 from rapid_tpu_torch import _u32
 from rapid_tpu_torch.ops.hashing import lex_argsort
+from rapid_tpu_torch.utils.xxhash import _MASK64, xxh64, xxh64_int, xxh64_rows
 
 
 class RingTopology(NamedTuple):
@@ -26,6 +31,42 @@ class RingTopology(NamedTuple):
     obs_idx: torch.Tensor
     subj_idx: torch.Tensor
     order: torch.Tensor
+
+
+def ring_key(endpoint, seed: int) -> int:
+    """The seeded ordering key of one endpoint on ring ``seed``, native
+    topology (MembershipView.java:562-587 with the port hashed as 8 bytes
+    and keys compared unsigned): ``xxh64(hostname, seed) * 31 +
+    xxh64_int(port, seed)`` mod 2**64."""
+    h = xxh64(endpoint.hostname.encode("utf-8"), seed)
+    return (h * 31 + xxh64_int(endpoint.port, seed)) & _MASK64
+
+
+def endpoint_ring_keys(endpoints: Sequence, k: int, topology: str = "native"):
+    """Host side: the K seeded 64-bit ring keys of every endpoint (any
+    object with ``.hostname`` and ``.port``), as numpy uint32 ``(hi, lo)``
+    arrays ``[K, N]``, equal to :func:`ring_key` per endpoint and ring.
+    Hashed in batches of equal hostname length (``xxh64_rows``).
+
+    Native topology only: the device's unsigned 64-bit keyspace cannot hold
+    the java-compatible signed ring order, so anything else raises."""
+    if topology != "native":
+        raise ValueError(
+            f"the device/engine path requires the native topology; got {topology!r} "
+            "(java-compat ring order is host-path only)"
+        )
+    seeds = np.arange(k, dtype=np.uint64)
+    hosts = [ep.hostname.encode("utf-8") for ep in endpoints]
+    ports = np.array([ep.port for ep in endpoints], dtype=np.int64)
+    keys = xxh64_rows(ports.astype("<i8").view(np.uint8).reshape(-1, 8), seeds)
+    lengths = np.array([len(h) for h in hosts], dtype=np.int64)
+    with np.errstate(over="ignore"):
+        for length in np.unique(lengths):
+            rows = np.nonzero(lengths == length)[0]
+            blob = np.frombuffer(b"".join(hosts[i] for i in rows), dtype=np.uint8)
+            host_keys = xxh64_rows(blob.reshape(len(rows), int(length)), seeds)
+            keys[:, rows] += host_keys * np.uint64(31)
+    return (keys >> np.uint64(32)).astype(np.uint32), (keys & np.uint64(0xFFFFFFFF)).astype(np.uint32)
 
 
 def _key64(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
@@ -39,6 +80,33 @@ def ring_perms(key_hi: torch.Tensor, key_lo: torch.Tensor) -> torch.Tensor:
     """Static per-ring key-order permutations, ``[K, N]`` int32: slot at
     position p of ring k's fixed unsigned key order, ties by slot index."""
     return lex_argsort((_u32.widen(key_hi), _u32.widen(key_lo))).to(torch.int32)
+
+
+def ring_topology(key_hi: torch.Tensor, key_lo: torch.Tensor, alive: torch.Tensor) -> RingTopology:
+    """All K rings by sorting: ``key_hi``/``key_lo`` ``[K, N]`` stored
+    uint32, ``alive`` ``[N]``. Each ring's alive slots in unsigned key
+    order (ties by slot), dead slots after them; a slot's observer is its
+    successor and its subject its predecessor on the circle of alive slots.
+    Returns int32 tables, equal to :func:`ring_topology_from_perm` on
+    :func:`ring_perms`."""
+    n = key_hi.shape[-1]
+    dev = key_hi.device
+    dead = (~alive).to(torch.int64).expand(key_hi.shape)
+    order = lex_argsort((dead, _u32.widen(key_hi), _u32.widen(key_lo)))  # [K, N]
+    n_alive = alive.sum()
+    pos = torch.arange(n, dtype=torch.int64, device=dev)
+    succ_pos = torch.where(pos + 1 >= n_alive, 0, pos + 1).clamp(0, n - 1).expand(order.shape)
+    pred_pos = torch.where(pos - 1 < 0, n_alive - 1, pos - 1).clamp(0, n - 1).expand(order.shape)
+    valid = (pos < n_alive) & (n_alive >= 2)
+    succ_slot = torch.where(valid, order.gather(-1, succ_pos), -1)
+    pred_slot = torch.where(valid, order.gather(-1, pred_pos), -1)
+    obs_idx = torch.full_like(order, -1).scatter_(-1, order, succ_slot)
+    subj_idx = torch.full_like(order, -1).scatter_(-1, order, pred_slot)
+    return RingTopology(
+        obs_idx=obs_idx.to(torch.int32),
+        subj_idx=subj_idx.to(torch.int32),
+        order=order.to(torch.int32),
+    )
 
 
 def _alive_at(alive: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
@@ -62,9 +130,11 @@ def ring_topology_from_perm(perm: torch.Tensor, alive: torch.Tensor) -> RingTopo
     """All K rings' topology from the static permutations and the alive
     mask, sort-free. Successor among alive = next alive position in the
     circular key order (suffix min, done as flip + cummin + flip), and
-    predecessor = previous alive position (prefix max). Returns int32
-    tables. Leading batch axes (a fleet's tenants) ride along:
-    ``perm [..., K, N]`` with ``alive [..., N]``."""
+    predecessor = previous alive position (prefix max). ``perm`` may be of
+    any index dtype (the compact layout stores it at int8 or int16); it is
+    widened to int64 for every gather and scatter. Returns int32 tables.
+    Leading batch axes (a fleet's tenants) ride along: ``perm [..., K, N]``
+    with ``alive [..., N]``."""
     perm = perm.to(torch.int64)
     n = perm.shape[-1]
     edge = perm.shape[:-1] + (1,)

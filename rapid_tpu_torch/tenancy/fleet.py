@@ -33,6 +33,10 @@ own mask: every tenant in :func:`fleet_step`, ``running`` in
 or quarantined tenant records nothing). Each tenant's lanes equal its own
 single cluster's.
 
+A fleet of compact clusters (``compact=1``, one of the fleet-static fields)
+stacks and runs through the same functions unchanged: every lane keeps its policy
+dtype, and at a few thousand slots the index lanes are int16.
+
 On a card the delivery kernel runs once per round for all tenants.
 """
 
@@ -45,6 +49,7 @@ import torch
 
 from rapid_tpu_torch import _host, _u32
 from rapid_tpu_torch.models.state import (
+    ROUND_ENVELOPE,
     EngineConfig,
     EngineState,
     FaultInputs,
@@ -238,10 +243,9 @@ def tenant_health(cfg: EngineConfig, state: EngineState) -> torch.Tensor:
     - no slot is alive and retired at once;
     - the per-configuration counters (round_idx, rounds_undecided,
       classic_epoch, promised classic ranks, config_epoch) are
-      non-negative.
-
-    (The JAX version also checks the compact layout's round envelope;
-    compaction is not ported.)"""
+      non-negative, and under the compact layout round_idx is within
+      ``ROUND_ENVELOPE`` (past it the narrow fire-round sentinel no longer
+      tells fired edges from unfired ones)."""
     ok = state.n_members == state.alive.sum(-1, dtype=torch.int32)
     ok &= (state.n_members >= 0) & (state.n_members <= cfg.n)
     ok &= ~(state.alive & state.retired).any(-1)
@@ -250,6 +254,8 @@ def tenant_health(cfg: EngineConfig, state: EngineState) -> torch.Tensor:
     ok &= state.classic_epoch >= 0
     ok &= (state.cp_rnd_r >= 0).all(-1)
     ok &= state.config_epoch >= 0
+    if cfg.compact:
+        ok &= state.round_idx <= ROUND_ENVELOPE
     return ok
 
 
@@ -518,6 +524,11 @@ class TenantFleet:
             violations.append(f"tenant {t}: negative promised classic rank")
         if int(s.config_epoch) < 0:
             violations.append(f"tenant {t}: config_epoch={int(s.config_epoch)} negative")
+        if self.cfg.compact and int(s.round_idx) > ROUND_ENVELOPE:
+            violations.append(
+                f"tenant {t}: round_idx={int(s.round_idx)} past the compact "
+                f"envelope {ROUND_ENVELOPE} (validate_envelope tripwire)"
+            )
         return violations
 
     def quarantine(self, tenants: Sequence[int]) -> None:

@@ -3,7 +3,9 @@
 The delivery kernel (``rapid_tpu_torch/csrc/delivery.cu``) against its plain
 PyTorch version, bit for bit, for one cluster and with a tenant axis, and
 the whole engine and a tenant fleet on the card against the same on the
-CPU, lane by lane, with and without the telemetry plane and trace ring.
+CPU, lane by lane, with and without the telemetry plane and trace ring, in
+the wide and the compact layout, and an endpoint cluster
+(``VirtualCluster.from_endpoints``).
 Every test needs a CUDA card and ``nvcc``
 and skips without them. On a GPU machine, from the root of a checkout
 (``--noconftest`` because the suite's conftest configures JAX, which the
@@ -21,6 +23,7 @@ from chip_smoke import (
 )
 from rapid_tpu_torch import _u32
 from rapid_tpu_torch.convert import state_to_numpy
+from rapid_tpu_torch.models.virtual_cluster import VirtualCluster
 from rapid_tpu_torch.ops.kernels import delivery_new_bits, delivery_new_bits_ref
 
 @pytest.fixture
@@ -177,3 +180,72 @@ def test_fleet_wave_with_planes_makes_no_synchronizing_call(card):
     for got, ref in ((out[5], fleet.telem), (out[6], fleet.trace_ring)):
         for field, value in state_to_numpy(ref).items():
             np.testing.assert_array_equal(state_to_numpy(got)[field], value, err_msg=field)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,fd_window", [(10, 0), (16, 0), (10, 16)])
+def test_compact_engine_on_card_matches_cpu_and_wide(card, k, fd_window):
+    # The churn of test_engine_on_card_matches_cpu_lane_by_lane, compact:
+    # int16 index lanes and the report lane at uint16 (bit 15 in play at
+    # K=16), or a uint16 history lane (fd_window=16).
+    from rapid_tpu_torch.models.state import lane_dtypes, widen_state
+
+    n, n_churn = 512, 12
+    lanes, results = {}, {}
+    for where, device, compact in (("card", card, True), ("cpu", torch.device("cpu"), True),
+                                   ("card_wide", card, False)):
+        vc = VirtualCluster.create(n, n_slots=n + n_churn, k=k, h=k - 1, l=4, cohorts=40,
+                                   fd_threshold=3, seed=3, delivery_spread=2,
+                                   fd_window=fd_window, compact=compact, device=device)
+        vc.assign_cohorts_roundrobin()
+        vc.crash(np.random.default_rng(3).choice(n, size=n_churn, replace=False))
+        vc.inject_join_wave(np.arange(n, n + n_churn))
+        launches = delivery_new_bits.launches
+        results[where] = resolve(vc, n)
+        if device.type == "cuda":
+            assert delivery_new_bits.launches > launches
+        lanes[where] = state_to_numpy(widen_state(vc.cfg, vc.state) if where == "card" else vc.state)
+        if compact:
+            got = {f: v.dtype.name for f, v in state_to_numpy(vc.state).items()}
+            assert got == {f: d for f, d in lane_dtypes(vc.cfg).items() if f in got}
+        lanes[where + "_raw"] = state_to_numpy(vc.state)
+    assert results["card"] == results["cpu"] == results["card_wide"]
+    assert results["card"][2], results
+    for field, want in lanes["cpu_raw"].items():
+        np.testing.assert_array_equal(lanes["card_raw"][field], want, err_msg=field)
+    for field, want in lanes["card_wide"].items():
+        np.testing.assert_array_equal(lanes["card"][field], want, err_msg=field)
+
+
+@pytest.mark.cuda
+def test_compact_fleet_on_card_matches_cpu(card):
+    from rapid_tpu_torch.tenancy import TenantFleet
+    from rapid_tpu_torch.tenancy.fleet import tenant_health
+
+    lanes, results = {}, {}
+    for device in (card, torch.device("cpu")):
+        clusters, targets = fleet_clusters(6, 128, 4, 40, 11, device, ((9, 4), (8, 3), (7, 2)),
+                                           compact=True)
+        fleet = TenantFleet.from_clusters(clusters)
+        assert fleet.state.obs_idx.dtype == torch.int16
+        results[device.type] = [r.tolist() for r in fleet.run_until_membership(
+            targets, max_steps=48, max_cuts=4, min_cuts=1)]
+        assert bool(tenant_health(fleet.cfg, fleet.state).all())
+        lanes[device.type] = state_to_numpy(fleet.state)
+    assert results["cuda"] == results["cpu"] and all(results["cuda"][2])
+    for field, want in lanes["cpu"].items():
+        np.testing.assert_array_equal(lanes["cuda"][field], want, err_msg=field)
+
+
+@pytest.mark.cuda
+def test_endpoint_cluster_on_card_matches_cpu(card):
+    from chip_smoke import endpoint_churn, endpoint_list
+
+    lanes, results = {}, {}
+    for device in (card, torch.device("cpu")):
+        vc, _ = endpoint_churn(endpoint_list(1_024), 1_000, 24, 24, device)
+        results[device.type] = resolve(vc, 1_000)
+        lanes[device.type] = {**state_to_numpy(vc.state), **state_to_numpy(vc.faults)}
+    assert results["cuda"] == results["cpu"] and results["cuda"][2]
+    for field, want in lanes["cpu"].items():
+        np.testing.assert_array_equal(lanes["cuda"][field], want, err_msg=field)

@@ -18,6 +18,7 @@ from rapid_tpu.models.virtual_cluster import classic_coordinator_targets
 from rapid_tpu_torch.convert import faults_from_numpy, state_from_numpy, state_to_numpy
 from rapid_tpu_torch.models.state import EngineConfig
 from rapid_tpu_torch.models.virtual_cluster import VirtualCluster as TorchCluster
+from rapid_tpu_torch.types import Endpoint
 
 
 def jax_lanes(tree):
@@ -29,7 +30,7 @@ def assert_same_lanes(torch_tree, jax_tree, where):
     assert set(got) == set(want)
     for field, w in want.items():
         assert got[field].dtype == w.dtype, f"{where}: {field} dtype {got[field].dtype} != {w.dtype}"
-        np.testing.assert_array_equal(got[field], w, err_msg=f"{where}: lane {field}")
+        np.testing.assert_array_equal(got[field], w, err_msg=f"{where}: lane {field}", strict=True)
 
 
 class Twin:
@@ -223,8 +224,13 @@ def test_bench_shaped_mini_churn_through_run_until_membership():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TorchCluster.create(16, device="cpu", compact=True)
+    # compact=1 is ported (tests/test_torch_compaction.py); a compaction
+    # level the JAX package does not define, and the java ring topology
+    # that the engine cannot hold, still raise.
+    with pytest.raises(ValueError, match="compact"):
+        TorchCluster.create(16, device="cpu", compact=2)
+    with pytest.raises(ValueError, match="native topology"):
+        TorchCluster.from_endpoints([Endpoint("h", 1)], topology="java", device="cpu")
     with pytest.raises(ValueError, match="requires telemetry"):
         TorchCluster.create(16, device="cpu", trace=4, telemetry=False)
     with pytest.raises(ValueError, match=">= 0"):

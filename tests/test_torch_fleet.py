@@ -38,7 +38,7 @@ def assert_same_lanes(torch_tree, jax_tree, where):
     assert set(got) == set(want)
     for field, w in want.items():
         assert got[field].dtype == w.dtype, f"{where}: {field} dtype {got[field].dtype} != {w.dtype}"
-        np.testing.assert_array_equal(got[field], w, err_msg=f"{where}: lane {field}")
+        np.testing.assert_array_equal(got[field], w, err_msg=f"{where}: lane {field}", strict=True)
 
 
 def build_tenants(make, seed0=50):

@@ -406,3 +406,144 @@ def test_delivery_plain_version_takes_a_tenant_axis(spread, permille):
     at_zero = tk.delivery_new_bits(u32(blocked), torch.from_numpy(age),
                                    torch.zeros(T, dtype=torch.int32), k, c, spread, permille)
     assert [not torch.equal(at_zero[t], got[t]) for t in range(T)] == [False] + [spread > 0] * 2
+
+
+# -- narrow lanes (the compact layout) and the rest of rapid_tpu/ops ------
+
+from rapid_tpu_torch import _narrow  # noqa: E402
+
+
+def narrow(arr):
+    """A numpy uint8/uint16/int8/int16/int32/uint32 array as the port's
+    stored lane."""
+    return _narrow.from_numpy(arr, np.asarray(arr).dtype.name, CPU)
+
+
+def same_narrow(got, want):
+    want = np.asarray(want)
+    np.testing.assert_array_equal(_narrow.to_numpy(got, want.dtype.name), want)
+
+
+def test_u32_widen_refuses_narrow_signed_lanes_and_narrow_helpers_keep_bits():
+    lane = narrow(np.array([0xFFFF, 0x8000, 1], dtype=np.uint16))
+    with pytest.raises(TypeError, match="_narrow.unsigned"):
+        _u32.widen(lane)
+    with pytest.raises(TypeError):
+        _u32.widen(torch.zeros(3, dtype=torch.int8))
+    assert _narrow.unsigned(lane).tolist() == [0xFFFF, 0x8000, 1]
+    assert tk.popcount32(lane).tolist() == [16, 1, 1]
+    wide = torch.tensor([0x1FFFF, 0x8000, -1, 255], dtype=torch.int64)
+    assert _narrow.keep_bits(wide, torch.int16).tolist() == [-1, -32768, -1, 255]
+    assert _narrow.keep_bits(wide, torch.uint8).tolist() == [255, 0, 255, 255]
+    assert [_narrow.bit(15, torch.int16), _narrow.bit(7, torch.uint8), _narrow.bit(31, torch.int32)] == [
+        -32768, 128, -(1 << 31)]
+
+
+@pytest.mark.parametrize("dtype,k", [(np.uint8, 8), (np.uint16, 16), (np.uint16, 10)])
+def test_popcount_and_watermark_classify_keep_narrow_widths_like_jax(dtype, k):
+    rng = np.random.default_rng(k)
+    old = rng.integers(0, 1 << k, size=(3, 700)).astype(dtype)
+    new = rng.integers(0, 1 << k, size=(3, 700)).astype(dtype)
+    old[0, :3] = [0, (1 << k) - 1, 1 << (k - 1)]
+    mask = rng.random(700) < 0.9
+    same(tk.popcount32(narrow(old)), jpk._popcount32(jnp.asarray(old)))
+    bits, cls = tk.watermark_merge_classify(narrow(old), narrow(new), torch.from_numpy(mask), k - 1, 3)
+    jbits, jcls = jpk.watermark_merge_classify(jnp.asarray(old), jnp.asarray(new), jnp.asarray(mask), k - 1, 3)
+    assert bits.dtype == narrow(old).dtype
+    same_narrow(bits, jbits)
+    same(cls, jcls)
+
+
+@pytest.mark.parametrize("dtype,k,idx", [(np.uint8, 8, np.int8), (np.uint16, 16, np.int16)])
+def test_cohort_watermark_pass_at_narrow_widths_matches_jax(dtype, k, idx):
+    # The compact layout's report lane (uint8 or uint16, bit 15 in play at
+    # K=16) with narrow index lanes; the implicit pass runs (seen_down).
+    rng = np.random.default_rng(k + 100)
+    c, n, h, l = 4, 120, k - 1, 3
+    report = (rng.integers(0, 1 << k, size=(c, n)) & rng.integers(0, 1 << k, size=(c, n))).astype(dtype)
+    new = np.where(rng.random((c, n)) < 0.3, rng.integers(0, 1 << k, size=(c, n)), 0).astype(dtype)
+    seen_down = np.array([True, False, True, True])
+    heard_down = np.array([False, True, False, False])
+    released = rng.random((c, n)) < 0.05
+    announced = np.array([False, False, True, False])
+    subject_mask = rng.random(n) < 0.95
+    inval_obs = rng.integers(-1, n, size=(k, n)).astype(idx)
+    args = (report, new, seen_down, released, announced, subject_mask, inval_obs, heard_down)
+    got = tcut.cohort_watermark_pass(
+        narrow(report), narrow(new), *(torch.from_numpy(a) for a in args[2:6]),
+        narrow(inval_obs), torch.from_numpy(heard_down), h, l, k,
+    )
+    want = jcut.cohort_watermark_pass(*(jnp.asarray(a) for a in args), h, l, k)
+    assert got[0].dtype == narrow(report).dtype
+    same_narrow(got[0], want[0])
+    for g, w in zip(got[1:], want[1:]):
+        same(g, w)
+    merged = np.where(subject_mask, report | new, 0)
+    assert (np.asarray(want[0]) != merged).any()  # the implicit pass set bits
+
+
+@pytest.mark.parametrize("case", ["decided", "split", "none_valid", "one_vote"])
+def test_tally_sorted_matches_jax(case):
+    rng = np.random.default_rng({"decided": 11, "split": 12, "none_valid": 13, "one_vote": 14}[case])
+    n = 150
+    values = rand_u32(rng, (2, 4))
+    values[0, 2] = 2**32 - 3  # sign bit: the sort and the winner read stay unsigned
+    pick = {"decided": np.where(rng.random(n) < 0.92, 2, 1), "split": rng.integers(0, 4, n),
+            "none_valid": rng.integers(0, 4, n), "one_vote": np.zeros(n, int)}[case]
+    vote_hi, vote_lo = values[0][pick], values[1][pick]
+    vote_valid = {"decided": rng.random(n) < 0.99, "split": rng.random(n) < 0.8,
+                  "none_valid": np.zeros(n, bool), "one_vote": np.eye(1, n, 40)[0] > 0}[case]
+    members = np.int32(n)
+    got = tcons.tally_sorted(u32(vote_hi), u32(vote_lo), torch.from_numpy(vote_valid), torch.tensor(members))
+    want = jcons.tally_sorted(jnp.asarray(vote_hi), jnp.asarray(vote_lo), jnp.asarray(vote_valid),
+                              jnp.asarray(members))
+    same(got.decided, want.decided)
+    same_u32(got.winner_hi, want.winner_hi)
+    same_u32(got.winner_lo, want.winner_lo)
+    same(got.max_count, want.max_count)
+    same(got.total_votes, want.total_votes)
+    assert bool(want.decided) == (case == "decided")
+
+
+@pytest.mark.parametrize("seen,idx", [(True, np.int32), (False, np.int32), (True, np.int16)])
+def test_process_alert_batch_matches_jax(seen, idx):
+    rng = np.random.default_rng(20 + seen)
+    n, k, h, l = 90, 10, 9, 4
+    state = (rng.random((n, k)) < 0.5, np.bool_(False), rng.random(n) < 0.05)
+    new = rng.random((n, k)) < 0.25
+    inval = rng.integers(-1, n, size=(k, n)).astype(idx)
+    subject = rng.random(n) < 0.95
+    got = tcut.process_alert_batch(
+        tcut.CutState(*(torch.from_numpy(np.asarray(a)) for a in state)),
+        torch.from_numpy(new), torch.tensor(seen), narrow(inval), torch.from_numpy(subject), h, l,
+    )
+    want = jcut.process_alert_batch(
+        jcut.CutState(*(jnp.asarray(a) for a in state)), jnp.asarray(new), jnp.asarray(seen),
+        jnp.asarray(inval), jnp.asarray(subject), h, l,
+    )
+    for g, w in zip((*got.state, *got[1:]), (*want.state, *want[1:])):
+        same(g, w)
+    empty = tcut.CutState.create(n, k)
+    assert empty.reports.shape == (n, k) and not empty.seen_down
+
+
+def test_alerts_to_report_matrix_matches_jax():
+    n, k = 12, 5
+    dst = [0, 3, 3, -1, 11, 12, 40, 2, 7]
+    rings = [0, 4, 4, 2, 5, 1, 0, -1, 3]  # padding, an out-of-range ring, slots past n
+    same(tcut.alerts_to_report_matrix(n, k, dst, rings), jcut.alerts_to_report_matrix(n, k, dst, rings))
+    same(tcut.alerts_to_report_matrix(n, k, [], []), jcut.alerts_to_report_matrix(n, k, [], []))
+
+
+@pytest.mark.parametrize("k", [3, 10, 32])
+def test_report_matrix_and_bits_convert_like_jax(k):
+    rng = np.random.default_rng(k)
+    reports = rng.random((4, 30, k)) < 0.5
+    bits = tk.reports_matrix_to_bits(torch.from_numpy(reports))
+    same_u32(bits, jpk.reports_matrix_to_bits(jnp.asarray(reports)))
+    same(tk.bits_to_reports_matrix(bits, k), jpk.bits_to_reports_matrix(jpk.reports_matrix_to_bits(
+        jnp.asarray(reports)), k))
+    if k <= 16:
+        narrow_bits = np.asarray(jpk.reports_matrix_to_bits(jnp.asarray(reports))).astype(np.uint16)
+        same(tk.bits_to_reports_matrix(narrow(narrow_bits), k),
+             jpk.bits_to_reports_matrix(jnp.asarray(narrow_bits), k))
