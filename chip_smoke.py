@@ -72,7 +72,33 @@ exits non-zero:
    (100,000 members, 2,500 keyed joiner slots, compact) on the card; the
    sorting ``ring_topology`` against ``ring_topology_from_perm``; 2,500
    crashes and the 2,500 joiners resolved; and a 2,048-endpoint twin on the
-   card and on the CPU, equal on every lane.
+   card and on the CPU, equal on every lane;
+15. serving: ``bench.py``'s stream stage as it writes it for an accelerator
+   (``rapid_tpu_torch.serving.StreamDriver``, 64 waves of 8 rounds, 2 deep):
+   a cluster of N=4,096 (4,224 slots, C=8, the plane and a 512-round ring,
+   ``PoissonChurn(rate=2.0, seed=7,300)``) and a fleet of 4 such tenants
+   (``FleetPoissonChurn(rate=0.5, seed=7,500)``), after ``bench.py``'s
+   warm-up; then the same single-cluster stream at the headline churn's
+   geometry (N=100,000, 102,500 slots, C=64, a 128-round ring, 16 waves,
+   rate 64). Every wave's application and every streamed round run with each
+   synchronizing call an error and must make no counted read; each stream
+   equals the same schedule driven through the batch seams and ``step()``
+   on the card (cut count, config ids, every lane of state, faults and
+   planes); the first 8 waves of the cluster stream equal the CPU's on every
+   lane; no wave's span was evicted from the ring. Printed: each
+   ``StreamResult``, the combined rate, p99 and overlap, the ring's
+   trajectory, and kernels per round of ``stream_step`` against ``step()``
+   from one profiled 8-round sample each;
+16. recovery: ``bench.py``'s drill (``Supervisor``: N=4,096, 4,128 slots,
+   16 waves of 4 rounds, a checkpoint every 5 waves, a transient failure at
+   wave 1, a kill after wave 8, ``recovery.resume`` on the card and the
+   rest replayed; 2 waves without churn after it) against an uninterrupted
+   twin, every lane equal; a checkpoint written on the card loaded on the
+   CPU to equal lanes; a damaged newest checkpoint skipped for its
+   predecessor, which replays to the twin; then the same drill at the
+   headline geometry (rate 64), whose checkpoints hold the full wide
+   state. Printed: MTTR, resume-to-serving, retries, replayed cuts and each
+   checkpoint's bytes and write time.
 
 A kernel's bound (``delivery_bound``) is the larger of its bytes (each
 input once, the output once) over the HBM rate and the delay draws its
@@ -80,7 +106,8 @@ inputs need (unblocked edges with ``0 <= age < spread``) times the
 operations of one draw over the int32 issue rate.
 
 The delivery kernel's launch count is zeroed just before each of the
-paths 4, 5, 8, 12 (churn and 1M), 13 and 14 and read just after. Then the kernels line, the card's
+paths 4, 5, 8, 12 (churn and 1M), 13, 14, 15 (each stream) and 16 (each drill with its twin)
+and read just after. Then the kernels line, the card's
 name and power limit from ``nvidia-smi``, and as the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -1280,6 +1307,393 @@ def phase_endpoints_path(dev):
     return launches
 
 
+# -- phases 15-16: the serving tier ----------------------------------------
+
+# bench.py's stream stage as it writes it for an accelerator: N=4,096 members
+# (2 x 64 spare slots for the joins), K=10, H=9, L=4, 8 cohorts, fd_threshold
+# 3, spread 2, the plane and a ring of the whole stage's 512 rounds on, 64
+# waves of 8 rounds 2 deep; a fleet of 4 such tenants.
+STREAM = dict(n=4_096, cohorts=8, waves=64, rounds=8, depth=2, tenants=4, rate=2.0,
+              fleet_rate=0.5, cpu_waves=8)
+# The same single-cluster stream at the headline churn's geometry.
+STREAM_HEADLINE = dict(n=HEADLINE["n"], n_slots=HEADLINE["n"] + HEADLINE["n_join"],
+                       cohorts=HEADLINE["cohorts"], trace=128, waves=16, rate=64.0)
+# bench.py's recovery drill: 16 waves of 4 rounds, a checkpoint every 16 // 3
+# waves, one transient failure at wave 1, a kill after wave 8; then 2 waves
+# without churn on the twin and the resumed drill, so that a cut still
+# pending (at N=100,000 a 4-round wave ends before its cut) commits on both.
+RECOVERY = dict(waves=16, rounds=4, every=5, kill_after=8, settle_waves=2)
+
+
+def stream_cluster(n, n_slots, cohorts, trace, seed, device, telemetry=True):
+    """bench.py's stream cluster (its recovery cluster with the planes off)."""
+    from rapid_tpu_torch.models.virtual_cluster import VirtualCluster
+
+    vc = VirtualCluster.create(
+        n, n_slots=n_slots, k=HEADLINE["k"], h=9, l=4, cohorts=cohorts, fd_threshold=3, seed=seed,
+        delivery_spread=HEADLINE["spread"], telemetry=telemetry, trace=trace if telemetry else 0,
+        device=device,
+    )
+    vc.assign_cohorts_roundrobin()
+    return vc
+
+
+def stream_fleet(seed0, device):
+    """bench.py's stream fleet: STREAM["tenants"] clusters of N members."""
+    from rapid_tpu_torch.tenancy import TenantFleet
+
+    n, trace = STREAM["n"], STREAM["waves"] * STREAM["rounds"]
+    return TenantFleet.from_clusters([
+        stream_cluster(n, n, STREAM["cohorts"], trace, seed0 + i, device)
+        for i in range(STREAM["tenants"])
+    ])
+
+
+def sync_checked_stream(target, **shape):
+    """A StreamDriver over ``target`` whose every wave application and every
+    streamed round run with each synchronizing call an error, and whose
+    submits make no counted read: only the ticket waits may block."""
+    from rapid_tpu_torch import _host
+    from rapid_tpu_torch.serving import StreamDriver
+
+    def checked(fn, *args):
+        reads = _host.read.count
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = fn(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        check(_host.read.count == reads, f"{fn.__name__} read the host on the stream path")
+        return out
+
+    class Checked(StreamDriver):
+        def submit(self, wave):
+            reads = _host.read.count
+            super().submit(wave)
+            check(_host.read.count == reads, "a submit read the host")
+
+        def _apply(self, wave):
+            checked(super()._apply, wave)
+
+    step = target.stream_step
+    target.stream_step = lambda: checked(step)
+    return Checked(target, **shape)
+
+
+def batch_drive(target, waves, rounds):
+    """The batch spelling of a stream schedule: the injection seams (the
+    join's admissibility read included) and ``step()`` rounds."""
+    from rapid_tpu_torch.serving import FleetWave
+
+    for wave in waves:
+        if isinstance(wave, FleetWave):
+            if wave.crash:
+                target.stream_crash(wave.crash)
+        else:
+            if wave.crash:
+                target.crash(list(wave.crash))
+            if wave.join:
+                target.inject_join_wave(list(wave.join))
+        for _ in range(rounds):
+            target.step()
+
+
+def all_lanes(target):
+    return {**plane_lanes(target.state), **plane_lanes(target.faults),
+            **{f"telem.{k}": v for k, v in plane_lanes(target.telem).items()},
+            **{f"trace.{k}": v for k, v in plane_lanes(target.trace_ring).items()}}
+
+
+def run_stream(dev, target, waves, checked=True):
+    """``waves`` through a (sync-checked) driver 8 rounds, 2 deep; returns
+    (driver, StreamResult as a dict, delivery launches)."""
+    from rapid_tpu_torch.ops.kernels import delivery_new_bits
+    from rapid_tpu_torch.serving import StreamDriver
+
+    shape = dict(rounds_per_wave=STREAM["rounds"], depth=STREAM["depth"])
+    driver = sync_checked_stream(target, **shape) if checked else StreamDriver(target, **shape)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    delivery_new_bits.launches = 0
+    for wave in waves:
+        driver.submit(wave)
+    result = driver.drain()
+    launches = delivery_new_bits.launches
+    check(result.waves == len(waves) and result.cuts > 0, f"stream result {result}")
+    return driver, result._asdict(), launches
+
+
+def stream_vs_batch(dev, build, waves, what):
+    """Stream ``waves`` through a sync-checked driver on a fresh target from
+    ``build(dev)``, drive the same schedule through the batch seams on
+    another, and hold them equal: config ids, the cut count and every lane
+    of state, faults and planes. Returns (driver, result, launches)."""
+    streamed = build(dev)
+    driver, result, launches = run_stream(dev, streamed, waves)
+    batch = build(dev)
+    batch_drive(batch, waves, STREAM["rounds"])
+    if hasattr(batch, "config_ids"):
+        check(streamed.config_ids() == batch.config_ids(), f"{what}: config ids differ")
+        check(int(batch.config_epochs().sum()) == result["cuts"], f"{what}: cut counts differ")
+    else:
+        check(streamed.config_id == batch.config_id, f"{what}: config ids differ")
+        check(batch.config_epoch == result["cuts"], f"{what}: cut counts differ")
+    check_same_lanes(all_lanes(streamed), all_lanes(batch), f"{what}: stream vs batch")
+    return driver, result, launches
+
+
+def kernels_per_round(dev, build, wave, rounds=8):
+    """Device kernels per round of ``stream_step`` and of ``step()``: one
+    profiled sample of ``rounds`` rounds each, on fresh targets from
+    ``build`` after ``wave`` is applied."""
+    out = {}
+    for name in ("stream_step", "step"):
+        vc = build(dev)
+        if wave.crash:
+            vc.crash(list(wave.crash))
+        if wave.join:
+            vc.inject_join_wave(list(wave.join), check_admissible=False)
+        run = getattr(vc, name)
+        _, prof = profile_run(dev, lambda: [run() for _ in range(rounds)])
+        out[name] = {"kernels_per_round": prof["device_kernels"] / rounds,
+                     "wall_ms_per_round": prof["wall_ms"] / rounds,
+                     "device_ms_per_round": prof["device_ms"] / rounds,
+                     "device_busy_share": prof["device_busy_share"]}
+    return out
+
+
+def phase_serving(dev):
+    """Phase 15. Returns the delivery launches of each streamed path."""
+    from rapid_tpu_torch.serving import FleetPoissonChurn, PoissonChurn
+    from rapid_tpu_torch.utils.histogram import LogHistogram
+
+    n, waves_n = STREAM["n"], STREAM["waves"]
+    n_slots, trace = n + 2 * waves_n, waves_n * STREAM["rounds"]
+
+    def cluster(device, seed=7_200):
+        return stream_cluster(n, n_slots, STREAM["cohorts"], trace, seed, device)
+
+    # Warm-up, as bench.py's: the crash, join and round paths once each.
+    warm = cluster(dev, 7_000)
+    warm.crash([0])
+    warm.inject_join_wave([n])
+    warm.step()
+    warm.sync()
+    warm_fleet = stream_fleet(7_100, dev)
+    warm_fleet.stream_crash([(0, 1)])
+    warm_fleet.step()
+    warm_fleet.sync()
+    del warm, warm_fleet
+
+    launches = {}
+    waves = PoissonChurn(n, n_slots, rate=STREAM["rate"], seed=7_300).waves(waves_n)
+    driver, cluster_result, launches["stream_cluster"] = stream_vs_batch(
+        dev, cluster, waves, "stream cluster")
+    trajectory = driver.last_trajectory
+    check(trajectory["waves_evicted"] == 0, f"the ring evicted waves: {trajectory}")
+    cluster_hist = driver.target.metrics.timings["engine_stream_alert_to_commit"]
+
+    fleet_waves = FleetPoissonChurn(STREAM["tenants"], n, rate=STREAM["fleet_rate"],
+                                    seed=7_500).waves(waves_n)
+    fleet_driver, fleet_result, launches["stream_fleet"] = stream_vs_batch(
+        dev, lambda d: stream_fleet(7_400, d), fleet_waves, "stream fleet")
+    fleet_hist = fleet_driver.target.metrics.timings["engine_stream_alert_to_commit"]
+
+    # The first waves of the cluster stream on the card and on the CPU.
+    cpu_waves = waves[:STREAM["cpu_waves"]]
+    sides = []
+    for device in (dev, torch.device("cpu")):
+        target = cluster(device)
+        run_stream(device, target, cpu_waves, checked=device.type == "cuda")
+        sides.append(all_lanes(target))
+    check_same_lanes(sides[0], sides[1], "stream cluster card vs cpu")
+
+    # The single-cluster stream at the headline churn's geometry.
+    hl = STREAM_HEADLINE
+
+    def headline(device):
+        return stream_cluster(hl["n"], hl["n_slots"], hl["cohorts"], hl["trace"], 7_200, device)
+
+    hl_waves = PoissonChurn(hl["n"], hl["n_slots"], rate=hl["rate"], seed=7_300).waves(hl["waves"])
+    hl_driver, hl_result, launches["stream_headline"] = stream_vs_batch(
+        dev, headline, hl_waves, "headline stream")
+    check(hl_driver.last_trajectory["waves_evicted"] == 0, "the headline ring evicted waves")
+    per_round = kernels_per_round(dev, headline, hl_waves[0])
+
+    wall = cluster_result["wall_ms"] + fleet_result["wall_ms"]
+    merged = LogHistogram.merged([cluster_hist, fleet_hist])
+    emit({"phase": "serving", "n": n, "n_slots": n_slots, "waves": waves_n,
+          "rounds_per_wave": STREAM["rounds"], "depth": STREAM["depth"],
+          "tenants": STREAM["tenants"], "cluster": cluster_result, "fleet": fleet_result,
+          "combined": {
+              "view_changes_per_sec": (cluster_result["cuts"] + fleet_result["cuts"]) / (wall / 1e3),
+              "p99_alert_to_commit_ms": merged.quantile(0.99),
+              "overlap_efficiency": 1.0 - (cluster_result["fetch_blocked_ms"]
+                                           + fleet_result["fetch_blocked_ms"]) / wall,
+              "h2d_bytes": cluster_result["h2d_bytes"] + fleet_result["h2d_bytes"]},
+          "trajectory": trajectory,
+          "cpu_twin_waves": len(cpu_waves), "lanes_bit_exact": len(sides[1]),
+          "headline": {"n": hl["n"], "n_slots": hl["n_slots"], "cohorts": hl["cohorts"],
+                       "trace": hl["trace"], "waves": hl["waves"], "rate": hl["rate"],
+                       **hl_result, "trajectory": hl_driver.last_trajectory,
+                       "per_round": per_round},
+          "delivery_launches": launches})
+    return launches
+
+
+@contextlib.contextmanager
+def timed_checkpoints(records):
+    """A context in which every serving checkpoint write appends its
+    (cursor, bytes, write ms) to ``records``."""
+    from rapid_tpu_torch.serving import recovery
+
+    real = recovery.write_checkpoint
+
+    def write(directory, target, wave_index, **kw):
+        start = time.perf_counter()
+        path = real(directory, target, wave_index, **kw)
+        records.append({"wave": wave_index, "bytes": path.stat().st_size,
+                        "write_ms": (time.perf_counter() - start) * 1e3})
+        return path
+
+    recovery.write_checkpoint = write
+    try:
+        yield
+    finally:
+        recovery.write_checkpoint = real
+
+
+def recovery_drill(dev, n, n_slots, cohorts, rate, ckpt_dir):
+    """bench.py's recovery drill on the card: an uninterrupted twin, then
+    the supervised drill (a transient failure at wave 1, checkpoints every
+    RECOVERY["every"] waves, a kill after wave RECOVERY["kill_after"]),
+    resumed from its checkpoint directory and replayed to the end, then
+    RECOVERY["settle_waves"] waves without churn on both. The resumed target
+    must equal the twin on every lane. Returns (report, resumed supervisor,
+    twin, schedule factory)."""
+    from rapid_tpu_torch.models.state import state_bytes_total
+    from rapid_tpu_torch.ops.kernels import delivery_new_bits
+    from rapid_tpu_torch.serving import (
+        PoissonChurn, SimulatedProcessKill, StreamWave, Supervisor, SupervisorFaultPlan, recovery,
+    )
+
+    waves, rounds, every = RECOVERY["waves"], RECOVERY["rounds"], RECOVERY["every"]
+
+    def build():
+        return stream_cluster(n, n_slots, cohorts, 0, 8_000, dev, telemetry=False)
+
+    def churn():
+        return PoissonChurn(n, n_slots, rate=rate, seed=8_100)
+
+    delivery_new_bits.launches = 0
+    twin = build()
+    twin_sup = Supervisor(twin, rounds_per_wave=rounds)
+    for wave in churn().waves(waves):
+        twin_sup.submit(wave)
+    twin_sup.drain()
+    written = []
+    drill = build()
+    with timed_checkpoints(written):
+        drill_sup = Supervisor(
+            drill, rounds_per_wave=rounds, checkpoint_dir=ckpt_dir, checkpoint_every=every,
+            fault_plan=SupervisorFaultPlan(transient_submit=((1, 1),),
+                                           kill_after_wave=RECOVERY["kill_after"]),
+        )
+        schedule, killed = churn(), None
+        try:
+            for _ in range(waves):
+                drill_sup.submit(schedule.wave())
+        except SimulatedProcessKill as exc:
+            killed = exc.wave_index
+        check(killed == RECOVERY["kill_after"], f"the drill's kill fired after wave {killed}")
+        start = time.monotonic()
+        resumed_sup, next_wave = recovery.resume(ckpt_dir, checkpoint_every=every, device=dev)
+        schedule = recovery.fast_forward(churn(), next_wave)
+        for _ in range(next_wave, waves):
+            resumed_sup.submit(schedule.wave())
+        replayed = resumed_sup.drain()
+        torch.cuda.synchronize(dev)
+        resume_to_serving_ms = (time.monotonic() - start) * 1e3
+    for sup in (twin_sup, resumed_sup):
+        for _ in range(RECOVERY["settle_waves"]):
+            sup.submit(StreamWave())
+        sup.drain()
+    launches = delivery_new_bits.launches
+    resumed = resumed_sup.target
+    check(twin.config_epoch > 0, "the drill committed no cut")
+    check(resumed.config_id == twin.config_id, "the resumed drill's config id differs from the twin's")
+    check_same_lanes(all_lanes(resumed), all_lanes(twin), "resumed drill vs twin")
+    report = {"n": n, "n_slots": n_slots, "cohorts": cohorts, "rate": rate, "waves": waves,
+              "rounds_per_wave": rounds, "checkpoint_every": every, "killed_after_wave": killed,
+              "resumed_wave": next_wave, "mttr_ms": resumed_sup.last_resume_ms,
+              "resume_to_serving_ms": resume_to_serving_ms,
+              "retries": drill.metrics.counters["engine_recovery_retries"],
+              "replayed_cuts": replayed.cuts, "cuts_after_settling": twin.config_epoch,
+              "checkpoints": written,
+              "state_bytes_at_rest": state_bytes_total(drill.cfg),
+              "delivery_launches": launches, "lanes_bit_exact": len(all_lanes(twin))}
+    return report, resumed_sup, twin, churn
+
+
+def phase_recovery(dev):
+    """Phase 16. Returns the delivery launches of both drills."""
+    import shutil
+    import tempfile
+
+    from pathlib import Path
+
+    from rapid_tpu_torch.serving import StreamWave, recovery
+    from rapid_tpu_torch.serving.supervisor import _damage_file
+    from rapid_tpu_torch.utils.checkpoint import load_serving_state
+    from rapid_tpu_torch.utils.xxhash import xxh64
+
+    root = tempfile.mkdtemp(prefix="rapid-recovery-")
+    try:
+        n = STREAM["n"]
+        drill, resumed_sup, twin, churn = recovery_drill(
+            dev, n, n + 2 * RECOVERY["waves"], STREAM["cohorts"], 2.0, f"{root}/drill")
+        # A checkpoint written on the card loads on the CPU to equal lanes.
+        target = resumed_sup.target
+        path = resumed_sup.checkpoint()
+        cfg, state, faults, _, meta = load_serving_state(path, device="cpu")
+        check(cfg == target.cfg and meta["wave_index"] == RECOVERY["waves"] + RECOVERY["settle_waves"],
+              f"checkpoint meta {meta}")
+        check_same_lanes({**plane_lanes(state), **plane_lanes(faults)},
+                         {**plane_lanes(target.state), **plane_lanes(target.faults)},
+                         "card checkpoint loaded on the cpu")
+        # A damaged newest checkpoint falls back to its predecessor, which
+        # replays to the twin.
+        _damage_file(path, truncate=False)
+        found, _, corrupt = recovery.latest_valid_checkpoint(f"{root}/drill", device=dev)
+        check(corrupt == [path] and found != path, f"no fallback past the damaged {path}: {found}")
+        fallback_sup, next_wave = recovery.resume(f"{root}/drill", device=dev)
+        schedule = recovery.fast_forward(churn(), next_wave)
+        for _ in range(next_wave, RECOVERY["waves"]):
+            fallback_sup.submit(schedule.wave())
+        for _ in range(max(next_wave, RECOVERY["waves"]), RECOVERY["waves"] + RECOVERY["settle_waves"]):
+            fallback_sup.submit(StreamWave())
+        fallback_sup.drain()
+        check_same_lanes(all_lanes(fallback_sup.target), all_lanes(twin), "fallback resume vs twin")
+        drill["fallback"] = {"damaged": path.name, "resumed_from": found.name,
+                             "resumed_wave": next_wave}
+
+        hl = STREAM_HEADLINE
+        headline, *_ = recovery_drill(dev, hl["n"], hl["n_slots"], hl["cohorts"], hl["rate"],
+                                      f"{root}/headline")
+        # The integrity trailer's share of a write and of the MTTR: one
+        # xxh64 over the newest headline checkpoint's bytes, on this host.
+        newest = sorted(Path(f"{root}/headline").glob("ckpt_w*.npz"))[-1]
+        data = newest.read_bytes()
+        start = time.perf_counter()
+        xxh64(data[:-12])
+        headline["xxh64_ms"] = (time.perf_counter() - start) * 1e3
+        headline["xxh64_bytes"] = len(data) - 12
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "recovery", "drill": drill, "headline": headline})
+    return {"recovery": drill["delivery_launches"], "recovery_headline": headline["delivery_launches"]}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--parent", metavar="DIR",
@@ -1330,6 +1744,8 @@ def main(argv=None) -> int:
         "compact_paths", phase_compact_paths)
     launches["compact_fleet_wave"] = timed("compact_fleet", phase_compact_fleet, built)
     launches["endpoints_churn"] = timed("endpoints_path", phase_endpoints_path)
+    launches.update(timed("serving", phase_serving))
+    launches.update(timed("recovery", phase_recovery))
     emit({"phase": "timing", "seconds": seconds, "total_seconds": time.perf_counter() - start,
           "launch_us_after": launch})
 

@@ -1,14 +1,22 @@
-"""Counted device-to-host reads.
+"""Counted device-to-host reads, and host-to-device uploads that do not wait.
 
 The JAX engine runs its loops and ``lax.cond`` gates on the device. The port
 runs them in Python, so every gate it branches on is a read that waits for
 the device. All such reads in the engine go through :func:`read`, whose
 ``count`` attribute says how many were made (``chip_smoke.py`` reports it
 per round).
+
+The other way, a plain ``torch.from_numpy(arr).to("cuda")`` copies from
+pageable memory and synchronizes the stream: every upload would wait for
+all the work queued before it. :func:`upload` is the streaming path's
+spelling, which does not wait.
 """
 
 from __future__ import annotations
 
+from typing import List
+
+import numpy as np
 import torch
 
 
@@ -19,3 +27,20 @@ def read(t: torch.Tensor):
 
 
 read.count = 0
+
+
+def upload(arr: np.ndarray, device: torch.device, keep: List[torch.Tensor]) -> torch.Tensor:
+    """``arr`` as a tensor on ``device``, queued behind the work already on
+    the current stream without waiting for it. On a card the array is copied
+    into a fresh pinned host buffer, which is uploaded with
+    ``non_blocking=True`` and appended to ``keep``: the caller holds it
+    until the stream has passed the copy (the streaming driver keeps each
+    wave's buffers with its completion ticket). On the CPU it is an ordinary
+    copy and ``keep`` is untouched."""
+    host = torch.from_numpy(np.ascontiguousarray(arr))
+    if device.type != "cuda":
+        return host.to(device, copy=True)
+    pinned = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
+    pinned.copy_(host)
+    keep.append(pinned)
+    return pinned.to(device, non_blocking=True)

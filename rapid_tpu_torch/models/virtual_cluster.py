@@ -29,7 +29,12 @@ the loops are Python loops, and each gate becomes one of two things:
 
 A single-cluster round therefore makes two reads in the common case: the
 invalidation gate and the packed (fast decision, fallback due) pair. A
-round whose fallback is due makes a third.
+round whose fallback is due makes a third. That is the batch round
+(:meth:`VirtualCluster.step`). The streaming pipeline's round
+(:meth:`VirtualCluster.stream_step`, :func:`engine_stream_step`) is the
+fleet's body at ``t = 1``: every gate a select, the view change
+select-applied, no read at all, so a wave of rounds queues on the card
+without waiting for it.
 
 With ``telemetry=True`` (and ``trace=R``) the drivers carry
 :class:`~rapid_tpu_torch.models.state.TelemetryLanes` (and
@@ -70,6 +75,7 @@ from rapid_tpu_torch.models.state import (
     lane_storage,
     map_lanes,
     resolve_device,
+    select_lanes,
     validate_config,
 )
 from rapid_tpu_torch.ops.consensus import tally_candidates, undecided_log2_bucket
@@ -82,6 +88,8 @@ from rapid_tpu_torch.ops.rings import (
     ring_topology_from_perm,
 )
 from rapid_tpu_torch.utils import engine_telemetry
+from rapid_tpu_torch.utils.dispatch import DispatchSeam
+from rapid_tpu_torch.utils.metrics import Metrics
 
 
 def cohort_words(c: int) -> int:
@@ -565,6 +573,29 @@ def engine_step(
     return _only(round_state), _only(events), decided, _only(telem), _only(trace)
 
 
+def engine_stream_step(
+    cfg: EngineConfig,
+    state: EngineState,
+    faults: FaultInputs,
+    telem: Optional[TelemetryLanes] = None,
+    trace: Optional[TraceRing] = None,
+):
+    """One cluster's full round with no host read: the tenant fleet's
+    ``fleet_step`` body at ``t = 1``. The invalidation pass and the classic
+    attempt are computed and kept where their gates are set, and the view
+    change is computed and kept where the round decided, so the results
+    equal :func:`engine_step`'s lane for lane. Returns (state, events,
+    telem, trace) with ``events.decided`` a 0-d bool on the state's
+    device. Covers the JAX package's ``engine_step`` as its ``stream_step``
+    dispatches it."""
+    round_state, decided, winner_mask, events, telem, trace = _compute_round(
+        cfg, _one(state), _one(faults), select=True, telem=_one(telem), trace=_one(trace)
+    )
+    committed = apply_view_change_impl(cfg, round_state, winner_mask)
+    state = select_lanes(decided, committed, round_state)
+    return _only(state), _only(events), _only(telem), _only(trace)
+
+
 def run_to_decision(
     cfg: EngineConfig,
     state: EngineState,
@@ -686,10 +717,14 @@ def sync_checksum(state: EngineState, faults: FaultInputs) -> torch.Tensor:
     return (total + _narrow.unsigned(state.report_bits).sum()) & _u32.MASK
 
 
-class VirtualCluster:
+class VirtualCluster(DispatchSeam):
     """Host driver around the engine: owns the state, injects faults and
     join waves, and runs rounds until convergence. Runs on CUDA unless
-    ``device`` names another device."""
+    ``device`` names another device.
+
+    Its ``metrics`` registry carries the JAX driver's counters and
+    per-phase dispatch timers, charged at the same seams with the same
+    bytes (:class:`~rapid_tpu_torch.utils.dispatch.DispatchSeam`)."""
 
     def __init__(self, cfg: EngineConfig, state: EngineState):
         validate_config(cfg)
@@ -698,6 +733,15 @@ class VirtualCluster:
         self.device = state.alive.device
         self.faults = FaultInputs.none(cfg, self.device)
         self.last_decided = False
+        self.metrics = Metrics()
+        # Attached by serving.StreamDriver and serving.supervisor.Supervisor
+        # (None: no stream, no supervision).
+        self.stream = None
+        self.recovery = None
+        # Pinned host buffers of uploads still in flight (_host.upload). A
+        # stream wave takes them with its ticket; every entry point that
+        # waits for the device releases the rest.
+        self._staged: list = []
         # Device telemetry plane and trace ring (None when off). The host
         # keeps decoded caches, zero-minted here and refreshed only by
         # sync(), so reading them never touches the device.
@@ -829,7 +873,7 @@ class VirtualCluster:
         n = cfg.n
         id_hi = rng.integers(0, 2**32, size=(n,), dtype=np.uint32)
         id_lo = rng.integers(0, 2**32, size=(n,), dtype=np.uint32)
-        alive = torch.zeros((n,), dtype=torch.bool, device=dev)
+        alive = np.zeros((n,), dtype=bool)
         alive[:n_members] = True
         state = initial_state(
             cfg,
@@ -837,27 +881,35 @@ class VirtualCluster:
             _u32.from_numpy(key_lo, dev),
             _u32.from_numpy(id_hi, dev),
             _u32.from_numpy(id_lo, dev),
-            alive,
+            torch.from_numpy(alive).to(dev),
         )
-        return cls(cfg, state)
+        cluster = cls(cfg, state)
+        cluster._account_h2d(key_hi, key_lo, id_hi, id_lo, alive)
+        return cluster
 
     # -- fault & membership injection ----------------------------------
 
     def _slot_index(self, slots: Sequence[int]) -> torch.Tensor:
         """Bounds-checked slot indices on the device (torch would raise on a
-        bad index on the CPU and assert on a card; this names the slots)."""
-        arr = np.asarray(slots, dtype=np.int64).reshape(-1)
+        bad index on the CPU and assert on a card; this names the slots).
+        They upload as int32, as the JAX package's do (and are charged so),
+        without waiting for the queued work (:func:`_host.upload`), and
+        widen to int64 for indexing on the device."""
+        arr = np.asarray(slots, dtype=np.int32).reshape(-1)
         if arr.size and (arr.min() < 0 or arr.max() >= self.cfg.n):
             raise IndexError(
                 f"slot indices out of range [0, {self.cfg.n}): "
                 f"{arr[(arr < 0) | (arr >= self.cfg.n)].tolist()}"
             )
-        return torch.from_numpy(arr).to(self.device)
+        self._account_h2d(arr)
+        return _host.upload(arr, self.device, self._staged).to(torch.int64)
+
+    # The injections below store with index_fill / index_copy: on a card,
+    # ``lane[idx] = python_scalar`` synchronizes the stream (the scalar is
+    # copied to the device first), which would stall every queued wave.
 
     def _set_crashed(self, idx: torch.Tensor, value: bool) -> None:
-        crashed = self.faults.crashed.clone()
-        crashed[idx] = value
-        self.faults = self.faults._replace(crashed=crashed)
+        self.faults = self.faults._replace(crashed=self.faults.crashed.index_fill(0, idx, value))
 
     def crash(self, slots: Sequence[int]) -> None:
         """Crash-stop the given slots (unresponsive until revived)."""
@@ -872,12 +924,12 @@ class VirtualCluster:
         the round body then applies rx-blocks and delivery delays."""
         state = self.state
         rdt = state.fire_round.dtype
-        fd_fired = state.fd_fired.clone()
-        fire_round = state.fire_round.clone()
-        fd_fired[idx] = edge_mask
         fire_never = compaction_policy(self.cfg).fire_never
-        fire_round[idx] = torch.where(edge_mask, state.round_idx.to(rdt), fire_never).to(rdt)
-        self.state = state._replace(fd_fired=fd_fired, fire_round=fire_round)
+        stamped = torch.where(edge_mask, state.round_idx.to(rdt), fire_never).to(rdt)
+        self.state = state._replace(
+            fd_fired=state.fd_fired.index_copy(0, idx, edge_mask),
+            fire_round=state.fire_round.index_copy(0, idx, stamped),
+        )
 
     def initiate_leave(self, slots: Sequence[int]) -> None:
         """Graceful batched leave: each leaver broadcasts its own departure
@@ -887,15 +939,16 @@ class VirtualCluster:
         obs_idx = self.state.obs_idx.clone()
         obs_idx[:, idx] = idx.to(obs_idx.dtype)[None, :].expand(self.cfg.k, -1)
         self.state = self.state._replace(obs_idx=obs_idx)
-        self._stamp_fired_edges(
-            idx, torch.ones((len(idx), self.cfg.k), dtype=torch.bool, device=self.device)
-        )
+        leaving = np.ones((len(idx), self.cfg.k), dtype=bool)
+        self._account_h2d(leaving)
+        self._stamp_fired_edges(idx, torch.from_numpy(leaving).to(self.device))
         self._set_crashed(idx, True)
 
     def set_flaky_edges(self, probe_fail: np.ndarray) -> None:
         """Arbitrary per-(subject, ring) probe failures."""
-        arr = torch.from_numpy(np.array(probe_fail, dtype=bool)).to(self.device)
-        self.faults = self.faults._replace(probe_fail=arr)
+        arr = np.array(probe_fail, dtype=bool)
+        self._account_h2d(arr)
+        self.faults = self.faults._replace(probe_fail=torch.from_numpy(arr).to(self.device))
 
     def stagger_fd_counts(self, rng: np.random.Generator, spread_rounds: int) -> None:
         """Randomize per-edge detection latency (negative initial counters
@@ -908,19 +961,25 @@ class VirtualCluster:
                 f"envelope of the {cdt.name} compaction policy"
             )
         offsets = rng.integers(0, spread_rounds + 1, size=(self.cfg.n, self.cfg.k))
-        fd_count = torch.from_numpy((-offsets).astype(cdt)).to(self.device)
-        self.state = self.state._replace(fd_count=fd_count)
+        narrowed = (-offsets).astype(cdt)
+        self._account_h2d(narrowed)
+        self.state = self.state._replace(fd_count=torch.from_numpy(narrowed).to(self.device))
 
     def inject_join_wave(self, slots: Sequence[int], check_admissible: bool = True) -> None:
         """Admit a batch of joiners: their gatekeepers (alive ring
         predecessors) become their observers and fire UP alerts on every
         ring, delivered like DOWN alerts. Current members, pending joiners
-        and retired slots are refused (one read of ``[j]`` bools)."""
+        and retired slots are refused (one read of ``[j]`` bools).
+
+        ``check_admissible=False`` skips that read: the streaming pipeline's
+        spelling, whose driver keeps the slot lifecycle on the host. Then
+        the wave makes no read and no synchronizing call."""
         slots = np.asarray(slots)
         state = self.state
         idx = self._slot_index(slots)
         if check_admissible:
             bad = np.asarray(_host.read((state.alive | state.join_pending | state.retired)[idx]))
+            self._account_d2h(bad.nbytes)
             if bad.any():
                 raise ValueError(
                     f"slots not admissible as joiners (member/pending/retired): "
@@ -930,20 +989,19 @@ class VirtualCluster:
             state.key_hi, state.key_lo, state.alive,
             state.key_hi[:, idx], state.key_lo[:, idx], perm=state.ring_perm,
         )  # [k, j]
-        join_pending = state.join_pending.clone()
-        obs_idx = state.obs_idx.clone()
-        inval_obs = state.inval_obs.clone()
-        join_pending[idx] = True
-        obs_idx[:, idx] = pred.to(obs_idx.dtype)
-        inval_obs[:, idx] = pred.to(inval_obs.dtype)
-        self.state = state._replace(join_pending=join_pending, obs_idx=obs_idx, inval_obs=inval_obs)
-        self._stamp_fired_edges(idx, (pred >= 0).T)
+        self.state = state._replace(
+            join_pending=state.join_pending.index_fill(0, idx, True),
+            obs_idx=state.obs_idx.index_copy(1, idx, pred.to(state.obs_idx.dtype)),
+            inval_obs=state.inval_obs.index_copy(1, idx, pred.to(state.inval_obs.dtype)),
+        )
+        self._stamp_fired_edges(idx, (pred >= 0).T.contiguous())
 
     def assign_cohorts(self, cohort_of: np.ndarray) -> None:
         """Set every slot's receiver cohort (stored at the cohort dtype)."""
         cdt = np.dtype(compaction_policy(self.cfg).cohort)
-        arr = torch.from_numpy(np.array(cohort_of, dtype=cdt)).to(self.device)
-        self.state = self.state._replace(cohort_of=arr)
+        arr = np.array(cohort_of, dtype=cdt)
+        self._account_h2d(arr)
+        self.state = self.state._replace(cohort_of=torch.from_numpy(arr).to(self.device))
 
     def assign_cohorts_roundrobin(self) -> None:
         """Spread the N slots evenly over the C receiver cohorts."""
@@ -952,8 +1010,9 @@ class VirtualCluster:
     def set_rx_block(self, rx_block: np.ndarray) -> None:
         """Change per-cohort receive blocking and re-stamp every fired edge
         to the current round, so alerts redeliver to newly-hearing cohorts."""
-        arr = torch.from_numpy(np.array(rx_block, dtype=bool)).to(self.device)
-        self.faults = self.faults._replace(rx_block=arr)
+        arr = np.array(rx_block, dtype=bool)
+        self._account_h2d(arr)
+        self.faults = self.faults._replace(rx_block=torch.from_numpy(arr).to(self.device))
         self.state = self.state._replace(
             fire_round=torch.where(
                 self.state.fd_fired,
@@ -964,26 +1023,65 @@ class VirtualCluster:
 
     # -- execution ------------------------------------------------------
 
+    def _step(self, phase: str) -> StepEvents:
+        """The one body of both round spellings: the batch round
+        (``step``, host branches, :attr:`last_decided` a host bool) and the
+        streaming pipeline's (``stream_enqueue``, no read, the events left
+        on the device)."""
+        self.metrics.inc("engine_steps")
+        self.metrics.inc("engine_convergence_steps")
+        with self._dispatch(phase):
+            if phase == "stream_enqueue":
+                self.state, events, self.telem, self.trace_ring = engine_stream_step(
+                    self.cfg, self.state, self.faults, self.telem, self.trace_ring
+                )
+            else:
+                self.state, events, self.last_decided, self.telem, self.trace_ring = engine_step(
+                    self.cfg, self.state, self.faults, self.telem, self.trace_ring
+                )
+                self._staged.clear()  # its reads waited for every upload
+        return events
+
     def step(self) -> StepEvents:
         """One round (and the view change if it decided)."""
-        self.state, events, self.last_decided, self.telem, self.trace_ring = engine_step(
-            self.cfg, self.state, self.faults, self.telem, self.trace_ring
-        )
-        return events
+        return self._step("step")
+
+    def stream_step(self) -> StepEvents:
+        """One round queued for the streaming pipeline
+        (:mod:`rapid_tpu_torch.serving`): the same protocol as :meth:`step`,
+        lane for lane, timed under the ``stream_enqueue`` phase, with no
+        host read and no synchronizing call, so it returns as soon as the
+        round's kernels are queued. The returned events stay on the
+        device."""
+        return self._step("stream_enqueue")
 
     def sync(self) -> int:
         """Wait for the cluster's queued work and return the JAX package's
         checksum of the state and faults (one counted read). With the
-        telemetry plane on, then fetch its digest, and the ring's, in one
-        counted read each and refresh :attr:`activity` and :attr:`trace`."""
-        checksum = _host.read(sync_checksum(self.state, self.faults))
-        if self.telem is not None:
-            digest = _host.read(telemetry_digest(_one(self.telem))[0])
-            self._activity = engine_telemetry.activity_summary(digest, self.cfg.n, self.cfg.c)
-        if self.trace_ring is not None:
-            digest = _host.read(trace_digest(_one(self.trace_ring))[0])
-            self._trace = engine_telemetry.trace_summary(digest, self.cfg.trace)
+        telemetry plane on, then refresh :attr:`activity` and :attr:`trace`
+        (:meth:`_refresh_activity`)."""
+        with self._dispatch("sync"):
+            checksum = _host.read(sync_checksum(self.state, self.faults))
+        self._account_d2h(4)
+        self._staged.clear()
+        self._refresh_activity()
         return checksum
+
+    def _refresh_activity(self) -> None:
+        """Fetch the telemetry digest, and the ring's, in one counted read
+        each and decode them into the host caches. Called only where the
+        host already waits for the device (:meth:`sync`, a stream's
+        drain)."""
+        if self.telem is not None:
+            digest = telemetry_digest(_one(self.telem))[0]
+            self._account_d2h(digest.nbytes)
+            self._activity = engine_telemetry.activity_summary(
+                _host.read(digest), self.cfg.n, self.cfg.c
+            )
+        if self.trace_ring is not None:
+            digest = trace_digest(_one(self.trace_ring))[0]
+            self._account_d2h(digest.nbytes)
+            self._trace = engine_telemetry.trace_summary(_host.read(digest), self.cfg.trace)
 
     @property
     def activity(self) -> Optional[dict]:
@@ -1011,10 +1109,18 @@ class VirtualCluster:
     def run_to_decision(self, max_steps: int = 64) -> Tuple[int, bool, torch.Tensor, int]:
         """Rounds until a view change commits; returns (rounds, decided,
         winner_mask, n_members)."""
-        self.state, steps, decided, winner, self.telem, self.trace_ring = run_to_decision(
-            self.cfg, self.state, self.faults, max_steps, self.telem, self.trace_ring
-        )
-        return steps, decided, winner, _host.read(self.state.n_members)
+        with self._dispatch("run_to_decision"):
+            self.state, steps, decided, winner, self.telem, self.trace_ring = run_to_decision(
+                self.cfg, self.state, self.faults, max_steps, self.telem, self.trace_ring
+            )
+            members = _host.read(self.state.n_members)
+        # The JAX driver's packed observation: 4 bytes, 8 past 2**22 slots.
+        self._account_d2h(4 if self.cfg.n < (1 << 22) else 8)
+        self._staged.clear()
+        self.metrics.inc("engine_convergence_steps", steps)
+        if decided:
+            self.metrics.inc("engine_cuts_committed")
+        return steps, decided, winner, members
 
     def run_until_membership(
         self, target: int, max_steps: int = 192, max_cuts: int = 8, min_cuts: int = 0
@@ -1023,29 +1129,40 @@ class VirtualCluster:
         reaches ``target``; returns (rounds, cuts, resolved, sizes)."""
         if not 0 <= target <= self.cfg.n:
             raise ValueError(f"target must be in [0, {self.cfg.n}]: {target}")
-        self.state, steps, cuts, resolved, sizes, self.telem, self.trace_ring = (
-            run_until_membership(
-                self.cfg, self.state, self.faults, target, max_steps, max_cuts, min_cuts,
-                self.telem, self.trace_ring,
+        with self._dispatch("run_until_membership"):
+            self.state, steps, cuts, resolved, sizes, self.telem, self.trace_ring = (
+                run_until_membership(
+                    self.cfg, self.state, self.faults, target, max_steps, max_cuts, min_cuts,
+                    self.telem, self.trace_ring,
+                )
             )
-        )
+        # The JAX driver's observation: (steps, cuts, resolved, sizes[max_cuts]) int32.
+        self._account_d2h(4 * (3 + max_cuts))
+        self._staged.clear()
+        self.metrics.inc("engine_convergence_steps", steps)
+        self.metrics.inc("engine_cuts_committed", cuts)
         return steps, cuts, resolved, tuple(sizes)
 
     # -- observers ------------------------------------------------------
 
     @property
     def membership_size(self) -> int:
+        self._account_d2h(4)
         return _host.read(self.state.n_members)
 
     @property
     def alive_mask(self) -> np.ndarray:
-        return self.state.alive.cpu().numpy()
+        mask = self.state.alive.cpu().numpy()
+        self._account_d2h(mask.nbytes)
+        return mask
 
     @property
     def config_epoch(self) -> int:
+        self._account_d2h(4)
         return _host.read(self.state.config_epoch)
 
     @property
     def config_id(self) -> int:
+        self._account_d2h(8)
         hi, lo = _host.read(_u32.widen(torch.stack([self.state.config_hi, self.state.config_lo])))
         return (hi << 32) | lo

@@ -1,7 +1,8 @@
 """The tenant fleet: B independent virtual clusters stepped together, one
 round of the engine for every tenant per call (port of
-``rapid_tpu/tenancy/fleet.py`` with its telemetry and trace twins; the
-sharded mesh entry points and the serving seams are not ported).
+``rapid_tpu/tenancy/fleet.py`` with its telemetry and trace twins and its
+serving seams, ``stream_step`` and ``stream_crash``; the sharded mesh entry
+points are not ported).
 
 The JAX package vmaps its engine over a leading tenant axis. Here the round
 body itself works on ``[t, ...]`` lanes (``models/virtual_cluster.py``),
@@ -71,6 +72,8 @@ from rapid_tpu_torch.models.virtual_cluster import (
 from rapid_tpu_torch.models.virtual_cluster import telemetry_digest as fleet_telemetry_digest
 from rapid_tpu_torch.models.virtual_cluster import trace_digest as fleet_trace_digest
 from rapid_tpu_torch.utils import engine_telemetry
+from rapid_tpu_torch.utils.dispatch import DispatchSeam
+from rapid_tpu_torch.utils.metrics import Metrics
 
 #: The EngineConfig fields that vary per tenant, as :class:`TenantKnobs`
 #: lanes. Every other field must be identical across a fleet's tenants, so
@@ -263,9 +266,10 @@ def _np(x: torch.Tensor) -> np.ndarray:
     return x.cpu().numpy()
 
 
-class TenantFleet:
+class TenantFleet(DispatchSeam):
     """Host driver over the batched engine: owns the stacked state, fault
-    masks and per-tenant knobs.
+    masks and per-tenant knobs, and a ``metrics`` registry charged as the
+    JAX fleet charges its own.
 
     A fleet is built by stacking ordinary per-tenant ``VirtualCluster``
     builds (:meth:`from_clusters`): every injection (crash, join wave,
@@ -289,6 +293,12 @@ class TenantFleet:
         self.knobs = knobs
         self.b = b
         self.device = state.alive.device
+        self.metrics = Metrics()
+        # Attached by serving.StreamDriver and serving.supervisor.Supervisor.
+        self.stream = None
+        self.recovery = None
+        # Pinned host buffers of uploads in flight (see VirtualCluster).
+        self._staged: list = []
         # tenant -> raw frozen membership captured at quarantine time (the
         # per-tenant freeze-lane inputs; see quarantine()).
         self._quarantined: dict = {}
@@ -348,12 +358,17 @@ class TenantFleet:
             stack_lanes([vc.faults for vc in clusters]),
             TenantKnobs.from_configs(cfgs, clusters[0].device),
         )
+        # The JAX fleet charges the stacked state's upload (each cluster
+        # charged its own builds to its own registry), so this one does too.
+        fleet._account_h2d(*fleet.state)
         # Each tenant's plane lanes come along: a fleet stacked mid-run
         # keeps its tenants' activity and round history.
         if base.telemetry:
             fleet.telem = stack_lanes([vc.telem for vc in clusters])
+            fleet._account_h2d(*fleet.telem)
         if base.trace:
             fleet.trace_ring = stack_lanes([vc.trace_ring for vc in clusters])
+            fleet._account_h2d(*fleet.trace_ring)
         return fleet
 
     @classmethod
@@ -394,22 +409,61 @@ class TenantFleet:
     def step(self) -> StepEvents:
         """One protocol round for every tenant; the stacked events stay on
         the device (reading them is the caller's choice)."""
-        self.state, events, self.telem, self.trace_ring = fleet_step(
-            self.cfg, self.state, self.faults, self.knobs, self.telem, self.trace_ring
-        )
+        return self._step("fleet_step")
+
+    def stream_step(self) -> StepEvents:
+        """One round for every tenant queued for the streaming pipeline:
+        :meth:`step` timed under the ``stream_enqueue`` phase (the fleet's
+        round makes no read either way)."""
+        return self._step("stream_enqueue")
+
+    def _step(self, phase: str) -> StepEvents:
+        self.metrics.inc("engine_tenant_rounds", self.b)
+        with self._dispatch(phase):
+            self.state, events, self.telem, self.trace_ring = fleet_step(
+                self.cfg, self.state, self.faults, self.knobs, self.telem, self.trace_ring
+            )
         return events
+
+    def stream_crash(self, pairs) -> None:
+        """Crash ``(tenant, slot)`` pairs mid-stream: one scatter onto the
+        stacked crash mask on the device. Only the ``[m, 2]`` int32 pairs
+        cross to the device, without waiting for the queued rounds
+        (:func:`_host.upload`). Bounds are checked on the host first."""
+        arr = np.asarray(pairs, dtype=np.int32).reshape(-1, 2)
+        if arr.size and (
+            arr[:, 0].min() < 0 or arr[:, 0].max() >= self.b
+            or arr[:, 1].min() < 0 or arr[:, 1].max() >= self.cfg.n
+        ):
+            raise IndexError(
+                f"(tenant, slot) pairs out of range [0, {self.b}) x "
+                f"[0, {self.cfg.n}): {arr.tolist()}"
+            )
+        self._account_h2d(arr)
+        idx = _host.upload(arr, self.device, self._staged).to(torch.int64)
+        flat = idx[:, 0] * self.cfg.n + idx[:, 1]
+        crashed = self.faults.crashed.flatten().index_fill(0, flat, True)
+        self.faults = self.faults._replace(crashed=crashed.view(self.b, self.cfg.n))
 
     def run_to_decision(self, max_steps: int = 64):
         """Every tenant runs to its own first view change; returns
         ``(rounds[t], decided[t], winner[t, n] on the device, members[t])``
         with one packed read of the observations."""
-        self.state, steps, decided, winner, self.telem, self.trace_ring = fleet_run_to_decision(
-            self.cfg, self.state, self.faults, self.knobs, max_steps, self.telem, self.trace_ring
-        )
-        obs = np.asarray(
-            _host.read(torch.stack([steps, decided.to(torch.int32), self.state.n_members]))
-        )
-        return obs[0], obs[1].astype(bool), winner, obs[2]
+        with self._dispatch("fleet_decision"):
+            self.state, steps, decided, winner, self.telem, self.trace_ring = fleet_run_to_decision(
+                self.cfg, self.state, self.faults, self.knobs, max_steps, self.telem,
+                self.trace_ring,
+            )
+            obs = np.asarray(
+                _host.read(torch.stack([steps, decided.to(torch.int32), self.state.n_members])),
+                dtype=np.int32,
+            )
+        self._account_d2h(obs.nbytes)
+        self._staged.clear()
+        rounds, was_decided = obs[0], obs[1].astype(bool)
+        self.metrics.inc("engine_tenant_rounds", int(rounds.sum()))
+        self.metrics.inc("engine_tenant_cuts", int(was_decided.sum()))
+        return rounds, was_decided, winner, obs[2]
 
     def run_until_membership(self, targets, max_steps: int = 192, max_cuts: int = 8, min_cuts=0):
         """The fleet wave: every tenant resolves its own churn, through its
@@ -434,18 +488,24 @@ class TenantFleet:
         bad = targets[serving]
         if bad.size and (bad.min() < 0 or bad.max() > self.cfg.n):
             raise ValueError(f"targets must be in [0, {self.cfg.n}]: {targets.tolist()}")
-        self.state, steps, cuts, resolved, sizes, self.telem, self.trace_ring = fleet_wave(
-            self.cfg, self.state, self.faults, self.knobs,
-            torch.from_numpy(targets).to(self.device), int(max_steps), int(max_cuts),
-            torch.from_numpy(min_cuts).to(self.device), self.telem, self.trace_ring,
-        )
-        obs = np.asarray(
-            _host.read(torch.cat([steps, cuts, resolved.to(torch.int32), sizes.reshape(-1)]))
-        )
+        self._account_h2d(targets, min_cuts)
+        with self._dispatch("fleet_wave"):
+            self.state, steps, cuts, resolved, sizes, self.telem, self.trace_ring = fleet_wave(
+                self.cfg, self.state, self.faults, self.knobs,
+                torch.from_numpy(targets).to(self.device), int(max_steps), int(max_cuts),
+                torch.from_numpy(min_cuts).to(self.device), self.telem, self.trace_ring,
+            )
+            obs = np.asarray(
+                _host.read(torch.cat([steps, cuts, resolved.to(torch.int32), sizes.reshape(-1)])),
+                dtype=np.int32,
+            )
+        self._account_d2h(obs.nbytes)
+        self._staged.clear()
         b = self.b
-        return obs[:b], obs[b : 2 * b], obs[2 * b : 3 * b].astype(bool), obs[3 * b :].reshape(
-            b, max_cuts
-        )
+        rounds, n_cuts = obs[:b], obs[b : 2 * b]
+        self.metrics.inc("engine_tenant_rounds", int(rounds.sum()))
+        self.metrics.inc("engine_tenant_cuts", int(n_cuts.sum()))
+        return rounds, n_cuts, obs[2 * b : 3 * b].astype(bool), obs[3 * b :].reshape(b, max_cuts)
 
     def sync(self) -> None:
         """Wait for all queued work on the fleet's device, then refresh the
@@ -453,18 +513,23 @@ class TenantFleet:
         :attr:`tenant_trace`)."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        self._staged.clear()
         self._refresh_activity()
 
     def _refresh_activity(self) -> None:
         """Fetch the stacked digests, one counted read each (``[t, 18]``,
         and ``[t, 2 + 9R]`` for the rings), and decode every tenant's."""
         if self.telem is not None:
-            digests = _host.read(fleet_telemetry_digest(self.telem))
+            digest = fleet_telemetry_digest(self.telem)
+            self._account_d2h(digest.nbytes)
+            digests = _host.read(digest)
             self._activity = [
                 engine_telemetry.activity_summary(d, self.cfg.n, self.cfg.c) for d in digests
             ]
         if self.trace_ring is not None:
-            digests = _host.read(fleet_trace_digest(self.trace_ring))
+            digest = fleet_trace_digest(self.trace_ring)
+            self._account_d2h(digest.nbytes)
+            digests = _host.read(digest)
             self._trace = [engine_telemetry.trace_summary(d, self.cfg.trace) for d in digests]
 
     @property
@@ -496,9 +561,11 @@ class TenantFleet:
         every tenant and read the ``[t]`` result once; returns the POISONED
         mask (True = invariants violated). Refreshes the plane caches, as
         :meth:`sync` does."""
-        poisoned = ~_np(tenant_health(self.cfg, self.state))
+        with self._dispatch("health_scan"):
+            ok = _np(tenant_health(self.cfg, self.state))
+        self._account_d2h(ok.nbytes)
         self._refresh_activity()
-        return poisoned
+        return ~ok
 
     def tenant_health_report(self, t: int) -> List[str]:
         """Host-side diagnosis of ONE tenant: the named violations behind a
@@ -507,6 +574,7 @@ class TenantFleet:
         if not 0 <= t < self.b:
             raise IndexError(f"tenant index {t} out of range [0, {self.b})")
         s = map_lanes(_np, self.tenant_state(t))
+        self._account_d2h(s.alive.nbytes + 4)
         violations: List[str] = []
         alive = int(np.sum(s.alive))
         members = int(s.n_members)
@@ -540,11 +608,14 @@ class TenantFleet:
         harmlessly to the others. Idempotent per tenant; never reversible
         within a fleet's lifetime."""
         members = _np(self.state.n_members)
+        self._account_d2h(members.nbytes)
         for t in tenants:
             t = int(t)
             if not 0 <= t < self.b:
                 raise IndexError(f"tenant index {t} out of range [0, {self.b})")
-            self._quarantined.setdefault(t, int(members[t]))
+            if t not in self._quarantined:
+                self._quarantined[t] = int(members[t])
+                self.metrics.inc("engine_tenant_quarantines")
 
     @property
     def quarantined(self) -> Tuple[int, ...]:
@@ -560,12 +631,17 @@ class TenantFleet:
         return map_lanes(lambda x: x[i], self.state)
 
     def membership_sizes(self) -> np.ndarray:
-        return _np(self.state.n_members)
+        out = _np(self.state.n_members)
+        self._account_d2h(out.nbytes)
+        return out
 
     def config_ids(self) -> List[int]:
         """Per-tenant 64-bit configuration ids, one packed read."""
-        hi, lo = _u32.to_numpy(torch.stack([self.state.config_hi, self.state.config_lo]))
-        return [(int(h) << 32) | int(l) for h, l in zip(hi, lo)]
+        obs = _u32.to_numpy(torch.stack([self.state.config_hi, self.state.config_lo]))
+        self._account_d2h(obs.nbytes)
+        return [(int(h) << 32) | int(l) for h, l in zip(*obs)]
 
     def config_epochs(self) -> np.ndarray:
-        return _np(self.state.config_epoch)
+        out = _np(self.state.config_epoch)
+        self._account_d2h(out.nbytes)
+        return out

@@ -4,8 +4,10 @@ The delivery kernel (``rapid_tpu_torch/csrc/delivery.cu``) against its plain
 PyTorch version, bit for bit, for one cluster and with a tenant axis, and
 the whole engine and a tenant fleet on the card against the same on the
 CPU, lane by lane, with and without the telemetry plane and trace ring, in
-the wide and the compact layout, and an endpoint cluster
-(``VirtualCluster.from_endpoints``).
+the wide and the compact layout, an endpoint cluster
+(``VirtualCluster.from_endpoints``), and a stream of churn waves through
+the serving driver against the batch drive and the CPU, its path free of
+host reads and synchronizing calls.
 Every test needs a CUDA card and ``nvcc``
 and skips without them. On a GPU machine, from the root of a checkout
 (``--noconftest`` because the suite's conftest configures JAX, which the
@@ -249,3 +251,68 @@ def test_endpoint_cluster_on_card_matches_cpu(card):
     assert results["cuda"] == results["cpu"] and results["cuda"][2]
     for field, want in lanes["cpu"].items():
         np.testing.assert_array_equal(lanes["cuda"][field], want, err_msg=field)
+
+
+def _small_stream_cluster(device, seed=5):
+    from chip_smoke import stream_cluster
+
+    return stream_cluster(256, 320, 8, 64, seed, device)
+
+
+@pytest.mark.cuda
+def test_stream_on_card_equals_batch_drive_and_cpu(card):
+    # A short stream (crashes and joins, 8 waves of 8 rounds, 2 deep) on the
+    # card, its wave applications and rounds under the sync check
+    # (chip_smoke.sync_checked_stream), against the same schedule through
+    # the batch seams on the card, and the same stream on the CPU.
+    from chip_smoke import all_lanes, batch_drive, run_stream
+    from rapid_tpu_torch.serving import PoissonChurn
+
+    waves = PoissonChurn(256, 320, rate=3.0, seed=9).waves(8)
+    streamed = _small_stream_cluster(card)
+    _, result, launches = run_stream(card, streamed, waves)
+    assert launches == 64  # one delivery launch per streamed round
+    batch = _small_stream_cluster(card)
+    batch_drive(batch, waves, 8)
+    on_cpu = _small_stream_cluster(torch.device("cpu"))
+    run_stream(torch.device("cpu"), on_cpu, waves, checked=False)
+    assert streamed.config_id == batch.config_id == on_cpu.config_id
+    assert result["cuts"] == batch.config_epoch > 0
+    want = all_lanes(batch)
+    for other in (streamed, on_cpu):
+        got = all_lanes(other)
+        for field, value in want.items():
+            np.testing.assert_array_equal(got[field], value, err_msg=field)
+
+
+@pytest.mark.cuda
+def test_stream_path_makes_no_read_and_no_synchronizing_call(card):
+    # crash, inject_join_wave(check_admissible=False), stream_step and the
+    # fleet's stream_crash and stream_step with every synchronizing call an
+    # error (pageable uploads would be one) and the counted reads unchanged.
+    from rapid_tpu_torch import _host
+    from rapid_tpu_torch.ops.rings import predecessor_of_keys
+    from rapid_tpu_torch.tenancy import TenantFleet
+
+    vc = _small_stream_cluster(card)
+    fleet = TenantFleet.from_clusters([_small_stream_cluster(card, s) for s in (1, 2, 3)])
+    torch.cuda.synchronize(card)
+    reads = _host.read.count
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        vc.crash([3, 7])
+        vc.inject_join_wave([256, 257, 300], check_admissible=False)
+        s = vc.state
+        predecessor_of_keys(s.key_hi, s.key_lo, s.alive, s.key_hi[:, :5], s.key_lo[:, :5],
+                            perm=s.ring_perm)
+        for _ in range(4):
+            vc.stream_step()
+        fleet.stream_crash([(0, 3), (2, 9)])
+        for _ in range(4):
+            fleet.stream_step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert _host.read.count == reads
+    assert len(vc._staged) == 2 and len(fleet._staged) == 1  # the pinned uploads, kept
+    assert all(buf.is_pinned() for buf in vc._staged + fleet._staged)
+    torch.cuda.synchronize(card)

@@ -2,7 +2,8 @@
 
 - Importing every ``rapid_tpu_torch`` module and ``chip_smoke`` loads
   neither ``jax`` nor anything of ``rapid_tpu`` (checked in a fresh
-  interpreter, since this test process has both loaded).
+  interpreter, since this test process has both loaded), and neither does
+  importing the serving tier alone (``rapid_tpu_torch.serving``).
 - The delivery wrapper raises on inputs its kernel does not take instead of
   quietly taking the plain version.
 """
@@ -37,10 +38,29 @@ def test_port_and_chip_smoke_import_no_jax_and_no_rapid_tpu():
         [sys.executable, "-c", _PROBE], cwd=REPO, capture_output=True, text=True, check=True,
     ).stdout.split(maxsplit=1)
     # Every module of the port was imported: tenancy, utils, the narrow-lane
-    # rule (_narrow), the endpoint type and the host hashing (utils.xxhash)
-    # included.
-    assert int(out[0]) >= 22
+    # rule (_narrow), the endpoint type, the host hashing (utils.xxhash) and
+    # the serving tier (serving, sim, utils.checkpoint, ...) included.
+    assert int(out[0]) >= 33
     assert out[1].strip() == "[]", f"the port loaded: {out[1]}"
+
+
+_SERVING_PROBE = """
+import sys
+import rapid_tpu_torch.serving
+from rapid_tpu_torch.serving import recovery, stream, supervisor
+from rapid_tpu_torch.utils import checkpoint
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "rapid_tpu"))
+print(bad)
+"""
+
+
+def test_serving_tier_imports_no_jax_and_no_rapid_tpu():
+    out = subprocess.run(
+        [sys.executable, "-c", _SERVING_PROBE], cwd=REPO, capture_output=True, text=True,
+        check=True,
+    ).stdout.strip()
+    assert out == "[]", f"the serving tier loaded: {out}"
 
 
 def _args(n=64, k=3, c=5):
