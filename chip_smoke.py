@@ -98,7 +98,25 @@ exits non-zero:
    predecessor, which replays to the twin; then the same drill at the
    headline geometry (rate 64), whose checkpoints hold the full wide
    state. Printed: MTTR, resume-to-serving, retries, replayed cuts and each
-   checkpoint's bytes and write time.
+   checkpoint's bytes and write time;
+17. chaos: ``bench.py``'s chaos stage as it writes it for an accelerator
+   (``rapid_tpu_torch.tenancy.chaos.fuzz_fleet``: 256 mixed hostile
+   scenarios over the ten fleet families, seeds 70,000 for the warm-up and
+   71,000 timed, no violation allowed), its fields printed; the timed specs
+   run again on the CPU to equal phase records, final slots, soak cuts and
+   totals; one restack of the 256 clusters timed; the first phase group's
+   wave again under the sync check and once profiled; the tampered
+   two-tenant fleet (tenant 1 at H=5 under a schedule judged at H=9)
+   shrunk and its repro written on the card, then replayed on the CPU to
+   the same violations and an undivided round trace;
+18. loss_variant: ``bench.py``'s loss variant: phase 4's churn at
+   N=100,000 with ``churn_under_loss``'s 5% loss mapped onto the delivery
+   knobs by ``loss_as_engine_delivery`` (spread 2, 50 permille: the
+   kernel's gated mode), a warm-up on seed 100 and the minimum of seeds
+   101 and 102, with ``bench.py``'s membership assertion; a twin at
+   N=4,096 on the card and on the CPU, equal on every lane. Then the
+   delivery rounds captured from the timed chaos fleet and the loss
+   warm-up go through phase 10's checks and timings.
 
 A kernel's bound (``delivery_bound``) is the larger of its bytes (each
 input once, the output once) over the HBM rate and the delay draws its
@@ -106,8 +124,9 @@ inputs need (unblocked edges with ``0 <= age < spread``) times the
 operations of one draw over the int32 issue rate.
 
 The delivery kernel's launch count is zeroed just before each of the
-paths 4, 5, 8, 12 (churn and 1M), 13, 14, 15 (each stream) and 16 (each drill with its twin)
-and read just after. Then the kernels line, the card's
+paths 4, 5, 8, 12 (churn and 1M), 13, 14, 15 (each stream), 16 (each drill
+with its twin), 17 (the timed fleet) and 18 (the three churns) and read
+just after. Then the kernels line, the card's
 name and power limit from ``nvidia-smi``, and as the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -370,16 +389,19 @@ def phase_kernel(dev):
     return modes, inputs
 
 
-def churn_cluster(n, n_join, n_crash, cohorts, seed, device, **planes):
+def churn_cluster(n, n_join, n_crash, cohorts, seed, device, delivery_spread=HEADLINE["spread"],
+                  delivery_prob_permille=1000, **planes):
     """bench.py's 5%-churn build: round-robin cohorts, FD counters staggered
-    over 3 rounds, ``n_crash`` crashes and ``n_join`` joins. ``planes``:
-    ``telemetry`` / ``trace`` for ``VirtualCluster.create``."""
+    over 3 rounds, ``n_crash`` crashes and ``n_join`` joins, with the
+    delivery knobs given (bench.py's clean churn by default, its loss
+    variant with ``loss_as_engine_delivery``'s). ``planes``: ``telemetry`` /
+    ``trace`` for ``VirtualCluster.create``."""
     from rapid_tpu_torch.models.virtual_cluster import VirtualCluster
 
     vc = VirtualCluster.create(
         n, n_slots=n + n_join, k=HEADLINE["k"], h=9, l=4, cohorts=cohorts, fd_threshold=3,
-        seed=seed, delivery_spread=HEADLINE["spread"], concurrent_coordinators=2,
-        device=device, **planes,
+        seed=seed, delivery_spread=delivery_spread, concurrent_coordinators=2,
+        delivery_prob_permille=delivery_prob_permille, device=device, **planes,
     )
     vc.assign_cohorts_roundrobin()
     rng = np.random.default_rng(seed + 1000)
@@ -643,11 +665,13 @@ def fleet_on(fleet, dev):
 def sync_checked_wave(fleet, targets, max_steps, max_cuts, min_cuts):
     """``fleet_wave`` over the fleet's lanes (its planes included) with every
     synchronizing call turned into an error: the wave loop must make none.
-    Returns what ``fleet_wave`` returns."""
+    ``min_cuts``: one value, or one per tenant. Returns what ``fleet_wave``
+    returns."""
     from rapid_tpu_torch.tenancy.fleet import fleet_wave
 
     target_t = torch.tensor(targets, dtype=torch.int32, device=fleet.device)
-    min_t = torch.full_like(target_t, min_cuts)
+    min_t = torch.tensor(np.broadcast_to(min_cuts, target_t.shape), dtype=torch.int32,
+                         device=fleet.device)
     torch.cuda.synchronize(fleet.device)
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -802,29 +826,38 @@ def pass_ms(fn, rounds, reps=5):
     return cuda_ms(lambda: [fn(*args) for args in rounds], reps=1, warmup=1, runs=reps)
 
 
-def phase_kernel_paths(dev, paths):
-    """Phase 10: the delivery kernel on the inputs captured from the paths
-    (``paths``: name -> every round's arguments, in order). Each round
-    bit for bit against the plain version; one pass over the rounds timed,
-    beside the sum of the rounds' bounds and the share of draws needed."""
+def captured_report(name, rounds):
+    """The delivery kernel on the inputs captured from one path (every
+    round's arguments, in order): each round bit for bit against the plain
+    version, then one pass over the rounds timed for the kernel and for the
+    plain version, beside the sum of the rounds' bounds and the share of
+    draws needed."""
     from rapid_tpu_torch.ops.kernels import delivery_new_bits, delivery_new_bits_ref
 
-    out = {}
-    for name, rounds in paths.items():
-        for i, args in enumerate(rounds):
-            check(torch.equal(delivery_new_bits(*args), delivery_new_bits_ref(*args)),
-                  f"delivery kernel differs on {name} round {i}")
-        bounds = [delivery_bound(*args) for args in rounds]
-        edges = sum(args[1].numel() * args[4] for args in rounds)  # k*n*t rings x c cohorts
-        ms = pass_ms(delivery_new_bits, rounds)
-        bound_ms = sum(b[0] for b in bounds)
-        out[name] = dict(
-            rounds=len(rounds), spread=rounds[0][5], permille=rounds[0][6],
-            shape=list(rounds[0][1].shape), ms=ms, ms_per_launch=ms / len(rounds),
-            bound_ms=bound_ms, bound_by=sorted({b[1] for b in bounds}),
-            share_of_bound=bound_ms / ms, needed_draws=sum(b[2] for b in bounds),
-            needed_draw_share=sum(b[2] for b in bounds) / edges,
-        )
+    check(rounds, f"no delivery round was captured on {name}")
+    for i, args in enumerate(rounds):
+        check(torch.equal(delivery_new_bits(*args), delivery_new_bits_ref(*args)),
+              f"delivery kernel differs on {name} round {i}")
+    bounds = [delivery_bound(*args) for args in rounds]
+    edges = sum(args[1].numel() * args[4] for args in rounds)  # k*n*t rings x c cohorts
+    ms = pass_ms(delivery_new_bits, rounds)
+    bound_ms = sum(b[0] for b in bounds)
+    return dict(
+        rounds=len(rounds), spread=rounds[0][5], permille=rounds[0][6],
+        shape=list(rounds[0][1].shape), ms=ms, ms_per_launch=ms / len(rounds),
+        plain_ms=cuda_ms(lambda: [delivery_new_bits_ref(*args) for args in rounds], reps=1,
+                         warmup=1, runs=3, graph=False),
+        bound_ms=bound_ms, bound_by=sorted({b[1] for b in bounds}),
+        share_of_bound=bound_ms / ms, needed_draws=sum(b[2] for b in bounds),
+        needed_draw_share=sum(b[2] for b in bounds) / edges,
+    )
+
+
+def phase_kernel_paths(dev, paths):
+    """Phase 10: the delivery kernel on the inputs captured from the paths
+    (``paths``: name -> every round's arguments, in order), each path
+    through :func:`captured_report`."""
+    out = {name: captured_report(name, rounds) for name, rounds in paths.items()}
     emit({"phase": "kernel_paths", **out})
     return out
 
@@ -1694,6 +1727,247 @@ def phase_recovery(dev):
     return {"recovery": drill["delivery_launches"], "recovery_headline": headline["delivery_launches"]}
 
 
+# -- phases 17-18: the chaos stage and the loss variant --------------------
+
+# bench.py's chaos stage as it writes it for an accelerator: 256 mixed
+# hostile scenarios per fleet (tenancy.chaos.fleet_specs), a warm-up fleet
+# and a timed one. Then the tampered two-tenant fleet of the JAX package's
+# shrinker test (tenant 1 runs H=5 under a schedule judged at H=9).
+CHAOS = dict(tenants=256, warmup_seed=70_000, timed_seed=71_000, max_steps=64)
+CHAOS_TAMPERED = dict(specs=[("partition_heal", 1), ("false_alert_stability", 3)],
+                      knobs=[(9, 4, 1), (5, 2, 1)])
+# bench.py's loss variant: the headline churn under churn_under_loss's loss,
+# a warm-up on seed 100 and the minimum of seeds 101 and 102; a twin at
+# N=4,096 on the card and on the CPU.
+LOSS = dict(warmup_seed=100, timed_seeds=(101, 102), twin_n=4_096, twin_churn=102,
+            twin_cohorts=40)
+
+
+@contextlib.contextmanager
+def keeping_runs(runs):
+    """A context in which every ``tenancy.chaos.run_fleet`` call also
+    appends its ``FleetRunResult`` to ``runs`` (``fuzz_fleet`` returns only
+    a summary)."""
+    from rapid_tpu_torch.tenancy import chaos
+
+    real = chaos.run_fleet
+
+    def keep(*args, **kwargs):
+        runs.append(real(*args, **kwargs))
+        return runs[-1]
+
+    chaos.run_fleet = keep
+    try:
+        yield
+    finally:
+        chaos.run_fleet = real
+
+
+def fleet_records(result):
+    """Every tenant's phase records, final slots and soak cuts, and the
+    run's totals, as plain values."""
+    return dict(
+        phases=[[(r.resolved, r.cuts, r.config_id, r.config_epoch, r.members) for r in records]
+                for records in result.phases],
+        final_slots=[sorted(slots) for slots in result.final_slots],
+        soak_cuts=None if result.soak_cuts is None else result.soak_cuts.tolist(),
+        total_rounds=result.total_rounds, total_cuts=result.total_cuts,
+        dispatches=result.dispatches,
+    )
+
+
+def first_group_fleet(specs, dev):
+    """The fleet of ``specs`` as ``run_fleet`` stacks it for its first
+    phase-group wave: compiled on the CPU (the same lanes, without ~10
+    launches per tenant), group 0 injected into every tenant that has one,
+    stacked and copied to ``dev``. Returns (fleet, targets, min_cuts)."""
+    from rapid_tpu_torch.tenancy import TenantFleet, chaos
+
+    scenarios = chaos.compile_fleet(specs, device=torch.device("cpu"))
+    targets, min_cuts = [], []
+    for scenario in scenarios:
+        delta = chaos._inject_group(scenario.vc, scenario.groups[0]) if scenario.groups else 0
+        targets.append(scenario.schedule.n0 + delta)
+        min_cuts.append(1 if scenario.groups else 0)
+    return fleet_on(TenantFleet.from_clusters([s.vc for s in scenarios]), dev), targets, min_cuts
+
+
+def phase_chaos(dev, captured):
+    """Phase 17. ``captured``: a list that receives the delivery inputs of
+    every round of the timed fleet. Returns the timed fleet's delivery
+    launches."""
+    import shutil
+    import tempfile
+
+    from rapid_tpu_torch import _host
+    from rapid_tpu_torch.ops.kernels import delivery_new_bits
+    from rapid_tpu_torch.tenancy import TenantFleet, chaos
+
+    b, max_steps = CHAOS["tenants"], CHAOS["max_steps"]
+    seconds, mark = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        seconds[name], mark[0] = now - mark[0], now
+
+    warm = chaos.fuzz_fleet(b, base_seed=CHAOS["warmup_seed"], shrink_failures=False, device=dev)
+    lap("warmup")
+    check(not warm["violations"], "chaos warm-up violations:\n" + "\n".join(warm["violations"]))
+
+    runs = []
+    torch.cuda.synchronize(dev)
+    delivery_new_bits.launches = 0
+    reads0 = _host.read.count
+    start = time.perf_counter()
+    with keeping_runs(runs), capturing(captured):
+        summary = chaos.fuzz_fleet(b, base_seed=CHAOS["timed_seed"], shrink_failures=False,
+                                   device=dev)
+    total_ms = (time.perf_counter() - start) * 1e3
+    launches, reads = delivery_new_bits.launches, _host.read.count - reads0
+    lap("timed")
+    check(not summary["violations"], "chaos fleet violations:\n" + "\n".join(summary["violations"]))
+    check(launches > 0, "the chaos fleet never launched the delivery kernel")
+    check(len(runs) == 1, f"fuzz_fleet made {len(runs)} fleet runs")
+    timed = runs[0]
+    n_groups = max(len(s.groups) for s in timed.scenarios)
+    check(launches == n_groups * max_steps + timed.soak_rounds,
+          f"{launches} delivery launches for {n_groups} waves and {timed.soak_rounds} soak rounds")
+
+    # The same specs through the port on the CPU: equal records.
+    specs = chaos.fleet_specs(b, CHAOS["timed_seed"])
+    cpu = chaos.run_fleet(chaos.compile_fleet(specs, device=torch.device("cpu")))
+    check(fleet_records(cpu) == fleet_records(timed), "chaos fleet records differ card vs cpu")
+    check([str(v) for v in chaos.check_fleet(cpu)] == summary["violations"], "cpu battery differs")
+    lap("cpu_twin")
+
+    # Host costs of the batched run: one restack of the 256 compiled
+    # clusters (run_fleet stacks once per phase group and once for the soak).
+    clusters = [s.vc for s in timed.scenarios]
+    restack = []
+    for _ in range(3):
+        torch.cuda.synchronize(dev)
+        begin = time.perf_counter()
+        TenantFleet.from_clusters(clusters)
+        torch.cuda.synchronize(dev)
+        restack.append((time.perf_counter() - begin) * 1e3)
+    lap("restacks")
+
+    # The first phase group's wave again, with every synchronizing call an
+    # error; then one profiled.
+    fleet, targets, min_cuts = first_group_fleet(specs, dev)
+    out = sync_checked_wave(fleet, targets, max_steps, 8, min_cuts)
+    got = [(bool(r), int(c), int(m)) for r, c, m in zip(out[3].tolist(), out[2].tolist(),
+                                                        out[0].n_members.tolist())]
+    want = [(records[0].resolved, records[0].cuts, records[0].members) for records in timed.phases]
+    check(got == want, "sync-checked first wave differs from the timed run's first group")
+    lap("sync_checked_wave")
+    fleet, targets, min_cuts = first_group_fleet(specs, dev)
+    (_, cuts, resolved, _), prof = profile_run(
+        dev, lambda: fleet.run_until_membership(targets, max_steps=max_steps, max_cuts=8,
+                                                min_cuts=min_cuts))
+    check(resolved.all(), "profiled chaos wave did not resolve")
+    prof["kernels_per_round"] = prof["device_kernels"] / max_steps
+    lap("profiled_wave")
+
+    # The tampered fleet: shrunk and written on the card, replayed on the CPU.
+    tampered = chaos.compile_fleet(CHAOS_TAMPERED["specs"], knobs=CHAOS_TAMPERED["knobs"],
+                                   device=dev)
+    violations = chaos.check_fleet(chaos.run_fleet(tampered))
+    check(set(chaos.violating_tenants(violations)) == {1}, f"tampered fleet: {violations}")
+    start = time.perf_counter()
+    t, minimal, min_violations, shrink_runs = chaos.shrink_tenant(
+        chaos.compile_fleet(CHAOS_TAMPERED["specs"], knobs=CHAOS_TAMPERED["knobs"], device=dev),
+        violations, device=dev)
+    shrink_ms = (time.perf_counter() - start) * 1e3
+    root = tempfile.mkdtemp(prefix="chaos-repro-")
+    try:
+        repro = chaos.write_fleet_repro(
+            f"{root}/repro", minimal, CHAOS_TAMPERED["knobs"][t], CHAOS_TAMPERED["specs"][t][0],
+            CHAOS_TAMPERED["specs"][t][1], tenant_index=t, fleet_size=2, device=dev)
+        recorded = sorted(line for line in (repro / "violations.txt").read_text().splitlines()
+                          if line and line != "(none)")
+        _, replayed = chaos.replay_fleet_repro(repro, device=torch.device("cpu"))
+        diff = chaos.replay_trace_divergence(repro, device=torch.device("cpu"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check(recorded and sorted(map(str, replayed)) == recorded,
+          f"repro replayed on the cpu to {replayed}, recorded {recorded}")
+    check(diff["first_divergent_round"] is None, f"repro trace diverged: {diff}")
+    lap("tampered")
+
+    emit({"phase": "chaos", "tenants": b, "families": len(summary["families"]),
+          "scenarios_per_sec": summary["scenarios_per_sec"], "dispatches": summary["dispatches"],
+          "total_cuts": summary["total_cuts"], "wall_ms": summary["wall_ms"],
+          "fuzz_fleet_ms": total_ms, "outside_run_window_ms": total_ms - summary["wall_ms"],
+          "warmup": {"scenarios_per_sec": warm["scenarios_per_sec"], "wall_ms": warm["wall_ms"]},
+          "seconds": seconds,
+          "waves": n_groups, "soak_rounds": timed.soak_rounds, "total_rounds": timed.total_rounds,
+          "host_reads": reads, "kernel_launches": launches,
+          "restack_ms": statistics.median(restack), "restacks_per_run": n_groups + 1,
+          "records_equal_cpu": b, "first_wave_sync_free": True,
+          "profile_first_wave": prof,
+          "tampered": {"violations": [str(v) for v in violations], "shrunk_tenant": t,
+                       "shrunk_events": len(minimal.events), "shrink_runs": shrink_runs,
+                       "shrink_ms": shrink_ms, "min_violations": [str(v) for v in min_violations],
+                       "replayed_on_cpu_equal": True, "trace": diff}})
+    return launches
+
+
+def phase_loss_variant(dev, captured):
+    """Phase 18. ``captured``: a list that receives the delivery inputs of
+    every round of the warm-up churn. Returns the delivery launches of the
+    warm-up and the timed churns."""
+    from rapid_tpu_torch import _host
+    from rapid_tpu_torch.convert import state_to_numpy
+    from rapid_tpu_torch.ops.kernels import delivery_new_bits
+    from rapid_tpu_torch.sim.faults import loss_as_engine_delivery
+    from rapid_tpu_torch.sim.fuzz import churn_under_loss
+
+    n, n_join, n_crash = HEADLINE["n"], HEADLINE["n_join"], HEADLINE["n_crash"]
+    permille = max(int(e.args["permille"]) for e in churn_under_loss(0).events if e.kind == "loss")
+    knobs = loss_as_engine_delivery(permille)
+    check((knobs["delivery_spread"], knobs["delivery_prob_permille"]) == (2, 50),
+          f"loss knobs {knobs}")
+    delivery_new_bits.launches = 0
+    samples = []
+    for seed in (LOSS["warmup_seed"], *LOSS["timed_seeds"]):
+        vc, victims = churn_cluster(n, n_join, n_crash, HEADLINE["cohorts"], seed, dev, **knobs)
+        torch.cuda.synchronize(dev)
+        launches0, reads0 = delivery_new_bits.launches, _host.read.count
+        start = time.perf_counter()
+        with capturing(captured if seed == LOSS["warmup_seed"] else None):
+            rounds, cuts, resolved, sizes = resolve(vc, n)
+        torch.cuda.synchronize(dev)
+        ms = (time.perf_counter() - start) * 1e3
+        check(resolved, f"loss churn unresolved: {cuts} cuts in {rounds} rounds, sizes {sizes}")
+        # bench.py's assertion: the membership is N and no victim is alive.
+        check(vc.membership_size == n and not vc.alive_mask[victims].any(),
+              "loss churn: wrong membership")
+        samples.append(dict(warmup=seed == LOSS["warmup_seed"], seed=seed, ms=ms, rounds=rounds,
+                            cuts=cuts, sizes=list(sizes), host_reads=_host.read.count - reads0,
+                            kernel_launches=delivery_new_bits.launches - launches0))
+    launches = delivery_new_bits.launches
+    check(launches > 0, "the loss variant never launched the delivery kernel")
+
+    # The twin at N=4,096 with the same knobs, on the card and on the CPU.
+    twin = {}
+    for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        vc, _ = churn_cluster(LOSS["twin_n"], LOSS["twin_churn"], LOSS["twin_churn"],
+                              LOSS["twin_cohorts"], 7, device, **knobs)
+        twin[where] = (resolve(vc, LOSS["twin_n"]),
+                       {**state_to_numpy(vc.state), **state_to_numpy(vc.faults)})
+    check(twin["card"][0] == twin["cpu"][0] and twin["card"][0][2],
+          f"loss twin: {twin['card'][0]}, {twin['cpu'][0]}")
+    check_same_lanes(twin["card"][1], twin["cpu"][1], "loss twin card vs cpu")
+    timed = [s for s in samples if not s["warmup"]]
+    emit({"phase": "loss_variant", "n": n, "n_slots": n + n_join, "cohorts": HEADLINE["cohorts"],
+          "loss_permille": permille, **knobs, "samples": samples,
+          "min_ms": min(s["ms"] for s in timed), "median_ms": statistics.median(s["ms"] for s in timed),
+          "twin": {"n": LOSS["twin_n"], "result": list(twin["card"][0][:2]),
+                   "lanes_bit_exact": len(twin["cpu"][1])}})
+    return launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--parent", metavar="DIR",
@@ -1746,6 +2020,12 @@ def main(argv=None) -> int:
     launches["endpoints_churn"] = timed("endpoints_path", phase_endpoints_path)
     launches.update(timed("serving", phase_serving))
     launches.update(timed("recovery", phase_recovery))
+    late_paths = {"chaos": [], "loss_variant": []}
+    launches["chaos"] = timed("chaos", phase_chaos, late_paths["chaos"])
+    launches["loss_variant"] = timed("loss_variant", phase_loss_variant,
+                                     late_paths["loss_variant"])
+    captured.update(timed("late_kernel_paths", phase_kernel_paths, late_paths))
+    late_paths.clear()
     emit({"phase": "timing", "seconds": seconds, "total_seconds": time.perf_counter() - start,
           "launch_us_after": launch})
 
@@ -1773,7 +2053,7 @@ def main(argv=None) -> int:
         "mode0": {shape: {key: m[key] for key in keys} for shape, m in (
             ("churn", modes[0]), ("fleet", fleet_modes[0]))},
         "captured": {name: {key: run[key] for key in (
-            "rounds", "ms", "bound_ms", "share_of_bound", "needed_draw_share")}
+            "rounds", "ms", "plain_ms", "bound_ms", "share_of_bound", "needed_draw_share")}
             for name, run in captured.items()},
     }]})
     print(card, flush=True)

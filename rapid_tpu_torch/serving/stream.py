@@ -50,8 +50,9 @@ from rapid_tpu_torch.sim.faults import FaultEvent
 from rapid_tpu_torch.utils.histogram import LogHistogram
 
 #: The subset of the sim fault vocabulary the streaming pipeline carries:
-#: membership churn. Environment faults (loss, delay, partitions) are the
-#: engine's delivery knobs, configuration rather than per-wave traffic.
+#: membership churn. Environment faults (loss, delay, partitions) ride the
+#: engine's delivery knobs instead (sim.faults.loss_as_engine_delivery) —
+#: they are configuration, not per-wave traffic.
 STREAMABLE_KINDS = frozenset({"crash", "join"})
 
 
@@ -128,7 +129,8 @@ def waves_from_schedule(schedule) -> List[StreamWave]:
             raise ValueError(
                 f"fault kind {event.kind!r} is not streamable (only "
                 f"{sorted(STREAMABLE_KINDS)} carry per-wave deltas); "
-                f"environment faults compile onto engine delivery knobs"
+                f"environment faults compile onto engine delivery knobs "
+                f"(rapid_tpu_torch.sim.faults.loss_as_engine_delivery)"
             )
         if getattr(event, "dwell_ms", 0.0):
             raise ValueError(

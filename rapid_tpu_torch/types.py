@@ -1,8 +1,9 @@
-"""Protocol types the port needs (a copy of ``Endpoint`` from
-``rapid_tpu/types.py``)."""
+"""Protocol types the port needs (copies of ``Endpoint`` and ``EdgeStatus``
+from ``rapid_tpu/types.py``)."""
 
 from __future__ import annotations
 
+import enum
 from dataclasses import dataclass
 
 
@@ -20,3 +21,10 @@ class Endpoint:
     def parse(host_port: str) -> "Endpoint":
         host, _, port = host_port.rpartition(":")
         return Endpoint(host, int(port))
+
+
+class EdgeStatus(enum.IntEnum):
+    """``rapid.proto:112-115``."""
+
+    UP = 0
+    DOWN = 1

@@ -5,9 +5,10 @@ PyTorch version, bit for bit, for one cluster and with a tenant axis, and
 the whole engine and a tenant fleet on the card against the same on the
 CPU, lane by lane, with and without the telemetry plane and trace ring, in
 the wide and the compact layout, an endpoint cluster
-(``VirtualCluster.from_endpoints``), and a stream of churn waves through
+(``VirtualCluster.from_endpoints``), a stream of churn waves through
 the serving driver against the batch drive and the CPU, its path free of
-host reads and synchronizing calls.
+host reads and synchronizing calls, a chaos fleet, the loss variant's
+gated delivery and a lie injected into a card cluster.
 Every test needs a CUDA card and ``nvcc``
 and skips without them. On a GPU machine, from the root of a checkout
 (``--noconftest`` because the suite's conftest configures JAX, which the
@@ -316,3 +317,60 @@ def test_stream_path_makes_no_read_and_no_synchronizing_call(card):
     assert len(vc._staged) == 2 and len(fleet._staged) == 1  # the pinned uploads, kept
     assert all(buf.is_pinned() for buf in vc._staged + fleet._staged)
     torch.cuda.synchronize(card)
+
+
+@pytest.mark.cuda
+def test_chaos_fleet_on_card_matches_cpu(card):
+    # The four honest families of the chaos tests as one fleet on the card
+    # and on the CPU: equal phase records, final slots and totals.
+    from chip_smoke import fleet_records
+    from rapid_tpu_torch.tenancy import chaos
+
+    specs = [("partition_heal", 5), ("asymmetric_link", 6), ("crash_during_join", 7),
+             ("churn_under_loss", 8)]
+    launches = delivery_new_bits.launches
+    on_card = chaos.run_fleet(chaos.compile_fleet(specs, device=card))
+    assert delivery_new_bits.launches > launches
+    on_cpu = chaos.run_fleet(chaos.compile_fleet(specs, device=torch.device("cpu")))
+    assert fleet_records(on_card) == fleet_records(on_cpu)
+    assert chaos.check_fleet(on_card) == []
+
+
+@pytest.mark.cuda
+def test_loss_mode_churn_on_card_matches_cpu(card):
+    # chip_smoke.py's churn recipe at N=1,024 with the loss variant's knobs
+    # (spread 2, 50 permille: the kernel's gated mode).
+    n, n_churn = 1_024, 24
+    lanes, results = {}, {}
+    for device in (card, torch.device("cpu")):
+        vc, _ = churn_cluster(n, n_churn, n_churn, 40, 5, device, delivery_spread=2,
+                              delivery_prob_permille=50)
+        results[device.type] = resolve(vc, n)
+        lanes[device.type] = {**state_to_numpy(vc.state), **state_to_numpy(vc.faults)}
+    assert results["cuda"] == results["cpu"]
+    assert results["cuda"][2], results
+    for field, want in lanes["cpu"].items():
+        np.testing.assert_array_equal(lanes["cuda"][field], want, err_msg=field)
+
+
+@pytest.mark.cuda
+def test_false_alert_injection_on_a_card_cluster(card):
+    # inject_engine_event reads the probe lanes back to the host once: on a
+    # CUDA cluster that read must work, and the lie must evict its subject
+    # as on the CPU.
+    from rapid_tpu_torch.sim import fuzz, oracles
+    from rapid_tpu_torch.sim.faults import FaultEvent
+
+    lie = FaultEvent("alert_storm", (2, 3), {"subject": 5, "rings": list(range(9))})
+    got = {}
+    for device in (card, torch.device("cpu")):
+        vc = VirtualCluster.from_endpoints(fuzz.endpoints_for(4, 12), n_members=8, k=10, h=9,
+                                           l=4, fd_threshold=1, device=device)
+        assert oracles.inject_engine_event(vc, lie) == -1
+        assert vc.faults.probe_fail.device.type == device.type
+        got[device.type] = (vc.run_to_decision(max_steps=16)[3],
+                            vc.faults.probe_fail.cpu().numpy(), vc.alive_mask)
+    assert got["cuda"][0] == got["cpu"][0] == 7
+    np.testing.assert_array_equal(got["cuda"][1], got["cpu"][1])
+    np.testing.assert_array_equal(got["cuda"][2], got["cpu"][2])
+    assert not got["cuda"][2][5]

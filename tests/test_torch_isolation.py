@@ -38,9 +38,10 @@ def test_port_and_chip_smoke_import_no_jax_and_no_rapid_tpu():
         [sys.executable, "-c", _PROBE], cwd=REPO, capture_output=True, text=True, check=True,
     ).stdout.split(maxsplit=1)
     # Every module of the port was imported: tenancy, utils, the narrow-lane
-    # rule (_narrow), the endpoint type, the host hashing (utils.xxhash) and
-    # the serving tier (serving, sim, utils.checkpoint, ...) included.
-    assert int(out[0]) >= 33
+    # rule (_narrow), the endpoint type, the host hashing (utils.xxhash), the
+    # serving tier (serving, utils.checkpoint, ...) and the chaos subsystem
+    # (settings, hier, sim, tenancy.chaos) included.
+    assert int(out[0]) >= 40
     assert out[1].strip() == "[]", f"the port loaded: {out[1]}"
 
 

@@ -10,6 +10,7 @@ batch drive, and its read-free round (``stream_step``) against ``step()``
 round by round. Module-scope fixtures share the JAX compiles.
 """
 
+import dataclasses
 import math
 
 import jax
@@ -23,6 +24,7 @@ from rapid_tpu.serving import PoissonChurn as JaxChurn
 from rapid_tpu.serving import StreamDriver as JaxDriver
 from rapid_tpu.serving import waves_from_schedule as jax_waves_from_schedule
 from rapid_tpu.sim.faults import FaultEvent as JaxFaultEvent
+from rapid_tpu.sim.faults import FaultSchedule as JaxFaultSchedule
 from rapid_tpu.tenancy import TenantFleet as JaxFleet
 from rapid_tpu.utils import histogram as jax_histogram
 from rapid_tpu.utils.metrics import Metrics as JaxMetrics
@@ -38,7 +40,8 @@ from rapid_tpu_torch.serving import (
     StreamWave,
     waves_from_schedule,
 )
-from rapid_tpu_torch.sim.faults import FaultEvent, ScheduleError
+from rapid_tpu_torch.sim import fuzz
+from rapid_tpu_torch.sim.faults import FaultEvent, FaultSchedule, ScheduleError
 from rapid_tpu_torch.tenancy import TenantFleet as TorchFleet
 from rapid_tpu_torch.utils import histogram
 from rapid_tpu_torch.utils.dispatch import ENGINE_DISPATCH_PHASES
@@ -281,6 +284,26 @@ def test_waves_from_schedule_is_jax_and_round_trips():
     with pytest.raises(ScheduleError, match="unknown kind"):
         FaultEvent(kind="typo")  # chaos-kind-ok: the unknown kind is what is tested
     assert STREAMABLE_KINDS == {"crash", "join"}
+
+
+@pytest.mark.parametrize("seed", [2, 7, 30])
+def test_waves_from_a_port_schedule_are_jax(seed):
+    """The port's own ``FaultSchedule`` streams: a crash-during-join family
+    with its dwells zeroed (the stream advances in rounds) gives JAX's
+    waves; an environment fault is refused, naming the port's loss mapping."""
+    family = fuzz.scenario_family("crash_during_join", seed)
+    schedule = FaultSchedule(
+        n0=family.n0, n_slots=family.n_slots, seed=seed, name=family.name,
+        events=[dataclasses.replace(e, dwell_ms=0.0) for e in family.events]
+        + [FaultEvent("crash", (3,)), FaultEvent("join", (11,))],
+    )
+    schedule.validate()
+    waves = waves_from_schedule(schedule)
+    assert as_tuples(waves) == as_tuples(
+        jax_waves_from_schedule(JaxFaultSchedule.from_json(schedule.to_json())))
+    assert len(waves) == 3 and waves[0].join == (8, 9)
+    with pytest.raises(ValueError, match=r"rapid_tpu_torch\.sim\.faults\.loss_as_engine_delivery"):
+        waves_from_schedule(fuzz.scenario_family("churn_under_loss", seed))
 
 
 def test_degenerate_drains_report_rate_zero():
