@@ -116,7 +116,24 @@ exits non-zero:
    101 and 102, with ``bench.py``'s membership assertion; a twin at
    N=4,096 on the card and on the CPU, equal on every lane. Then the
    delivery rounds captured from the timed chaos fleet and the loss
-   warm-up go through phase 10's checks and timings.
+   warm-up go through phase 10's checks and timings;
+19. observability: the scrape tier. Phase 4's churn at N=100,000 with the
+   plane and a 64-round ring, then ``telemetry_snapshot()`` and its
+   Prometheus text, each timed, the text's bytes and the snapshot's counted
+   reads; the allocator gauges set, ``device_bytes_in_use`` equal to
+   ``torch.cuda.memory_allocated`` at the scrape, the peak at least the
+   state's bytes; the build capture's arithmetic (lookups are hits plus
+   misses, builds are misses and the build histogram's count). Phase 9's
+   churn at N=4,096 on the card and on the CPU: equal snapshots (but the
+   build and memory sections and wall-clock values), metric names and ring
+   recordings. Phase 8's fleet after one wave (every ``tenant=`` label
+   present, names equal to a 6-tenant CPU fleet's) and phase 15's stream
+   cluster under a ``Supervisor``, scraped between waves (its ``stream``
+   and ``recovery`` names equal to the CPU's). One more N=100,000 churn
+   under ``profiling.trace`` inside ``annotate("churn")``: the exported
+   trace holds the delivery kernel and the span, and the churn's results
+   equal the unprofiled one's. Last, ptxas's facts of every delivery
+   kernel instance (``compiled_memory_analysis("delivery")``).
 
 A kernel's bound (``delivery_bound``) is the larger of its bytes (each
 input once, the output once) over the HBM rate and the delay draws its
@@ -125,8 +142,9 @@ operations of one draw over the int32 issue rate.
 
 The delivery kernel's launch count is zeroed just before each of the
 paths 4, 5, 8, 12 (churn and 1M), 13, 14, 15 (each stream), 16 (each drill
-with its twin), 17 (the timed fleet) and 18 (the three churns) and read
-just after. Then the kernels line, the card's
+with its twin), 17 (the timed fleet), 18 (the three churns) and 19 (each
+scraped path and the profiled churn) and read just after. Then the kernels
+line (with ptxas's facts), the card's
 name and power limit from ``nvidia-smi``, and as the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -1968,6 +1986,231 @@ def phase_loss_variant(dev, captured):
     return launches
 
 
+# -- phase 19: engine observability ------------------------------------------
+
+OBSERVE = dict(trace=64, twin_n=4_096, twin_churn=102, stream_waves=8, cpu_fleet=6)
+
+
+def comparable_snapshot(snap):
+    """``snap`` as plain JSON without what may rightly differ between two
+    runs of the same drive (a card and the CPU, or the port and the JAX
+    package): the ``compile`` and ``memory`` sections, each ``*_ms``
+    histogram but its count, and the stream's drained rates and the
+    recovery MTTR (wall clock) but whether they are set."""
+    snap = json.loads(json.dumps(snap))
+    engine = snap["engine"]
+    engine.pop("compile")
+    engine.pop("memory")
+    for name, value in snap["metrics"].items():
+        if isinstance(value, dict):
+            snap["metrics"][name] = (
+                value["count"] if "count" in value
+                else {phase: hist["count"] for phase, hist in value.items()}
+            )
+    for section, keys in (("stream", ("view_changes_per_sec", "overlap_efficiency",
+                                      "p99_alert_to_commit_ms")),
+                          ("recovery", ("mttr_ms",))):
+        for key in keys:
+            if section in engine:
+                engine[section][key] = engine[section][key] is None
+    return snap
+
+
+def scrape(target):
+    """One scrape of a driver: the snapshot and its Prometheus text, each
+    timed on the host's clock, with the text's bytes and the counted reads
+    of the snapshot. Returns (snapshot, text, report)."""
+    from rapid_tpu_torch import _host
+    from rapid_tpu_torch.utils import exposition
+
+    reads0 = _host.read.count
+    start = time.perf_counter()
+    snap = target.telemetry_snapshot()
+    scrape_ms = (time.perf_counter() - start) * 1e3
+    reads = _host.read.count - reads0
+    start = time.perf_counter()
+    text = exposition.prometheus_text(snap)
+    render_ms = (time.perf_counter() - start) * 1e3
+    return snap, text, {"scrape_ms": scrape_ms, "render_ms": render_ms,
+                        "text_bytes": len(text.encode()), "reads_per_scrape": reads,
+                        "series": sum(1 for ln in text.splitlines() if not ln.startswith("#"))}
+
+
+def check_build_capture(snap, what):
+    """The build capture's own arithmetic (utils/engine_telemetry)."""
+    build = snap["engine"]["compile"]
+    check(build["cache_requests"] == build["persistent_cache_hits"] + build["persistent_cache_misses"],
+          f"{what}: build lookups {build}")
+    check(build["compiles"] == build["persistent_cache_misses"] == build["compile_ms"]["count"],
+          f"{what}: builds {build}")
+    return {k: build[k] for k in ("compiles", "persistent_cache_hits", "persistent_cache_misses",
+                                  "cache_requests")} | {"compile_ms_sum": build["compile_ms"]["sum"]}
+
+
+def phase_observability(dev):
+    """Phase 19. Returns the delivery launches of each scraped path."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from rapid_tpu_torch.models.state import state_bytes_total
+    from rapid_tpu_torch.ops.kernels import delivery_new_bits
+    from rapid_tpu_torch.serving import PoissonChurn, Supervisor
+    from rapid_tpu_torch.tenancy import TenantFleet
+    from rapid_tpu_torch.utils import engine_telemetry, exposition, profiling
+
+    launches, report = {}, {}
+    n, n_join = HEADLINE["n"], HEADLINE["n_join"]
+    planes = dict(telemetry=True, trace=OBSERVE["trace"])
+
+    # The single cluster at the churn's full width, scraped after one churn.
+    vc, _ = churn_cluster(n, n_join, HEADLINE["n_crash"], HEADLINE["cohorts"], 11, dev, **planes)
+    torch.cuda.synchronize(dev)
+    delivery_new_bits.launches = 0
+    churned = resolve(vc, n)
+    launches["observability_churn"] = delivery_new_bits.launches
+    check(churned[2], f"the scraped churn did not resolve: {churned}")
+    vc.sync()
+    snap, text, cluster = scrape(vc)
+    allocated = torch.cuda.memory_allocated(dev)
+    memory = snap["engine"]["memory"]
+    check(None not in memory.values(), f"memory gauges unset on the card: {memory}")
+    check(memory["device_bytes_in_use"] == allocated,
+          f"device_bytes_in_use {memory['device_bytes_in_use']} != memory_allocated {allocated}")
+    check(memory["device_peak_bytes"] >= state_bytes_total(vc.cfg),
+          f"peak {memory['device_peak_bytes']} below the state's {state_bytes_total(vc.cfg)} bytes")
+    check(cluster["reads_per_scrape"] == 4, f"a scrape made {cluster['reads_per_scrape']} reads")
+    check(exposition.metric_names(vc.prometheus_text()) == exposition.metric_names(text),
+          "prometheus_text() names differ from the rendered snapshot's")
+    report["cluster"] = {"n": n, "n_slots": n + n_join, "cohorts": HEADLINE["cohorts"],
+                         "rounds": churned[0], "cuts": churned[1], **cluster, "memory": memory,
+                         "build": check_build_capture(snap, "cluster"),
+                         "state_bytes": state_bytes_total(vc.cfg)}
+    del vc
+
+    # The same seeded churn at N=4,096 on the card and on the CPU.
+    tn, tc = OBSERVE["twin_n"], OBSERVE["twin_churn"]
+    twins = {}
+    for side, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        twin, _ = churn_cluster(tn, tc, tc, 40, 7, device, telemetry=True, trace=16)
+        delivery_new_bits.launches = 0
+        resolve(twin, tn)
+        if side == "card":
+            launches["observability_twin_churn"] = delivery_new_bits.launches
+        twin.sync()
+        twins[side] = (twin.telemetry_snapshot(), twin.prometheus_text())
+    (card_snap, card_text), (cpu_snap, cpu_text) = twins["card"], twins["cpu"]
+    check(comparable_snapshot(card_snap) == comparable_snapshot(cpu_snap),
+          "the N=4,096 snapshots differ card vs cpu")
+    check(exposition.metric_names(card_text) == exposition.metric_names(cpu_text),
+          "the N=4,096 metric names differ card vs cpu")
+    check(engine_telemetry.trace_recorder_snapshot(card_snap["engine"]["trace"])
+          == engine_telemetry.trace_recorder_snapshot(cpu_snap["engine"]["trace"]),
+          "the ring's flight recordings differ card vs cpu")
+    report["twin"] = {"n": tn, "keys_equal": len(comparable_snapshot(cpu_snap)["metrics"]),
+                      "names": len(exposition.metric_names(cpu_text)),
+                      "ring_events": len(engine_telemetry.trace_recorder_snapshot(
+                          cpu_snap["engine"]["trace"])["events"])}
+
+    # bench.py's fleet with the plane on, scraped after one wave.
+    b, fn, extra = FLEET["tenants"], FLEET["n"], FLEET["n_extra"]
+    wave = dict(max_steps=FLEET["max_steps"], max_cuts=4, min_cuts=1)
+    clusters, targets = fleet_clusters(b, fn, extra, FLEET["cohorts"], 80_000,
+                                       torch.device("cpu"), telemetry=True)
+    fleet = fleet_on(TenantFleet.from_clusters(clusters), dev)
+    fleet.sync()
+    delivery_new_bits.launches = 0
+    _, _, resolved, _ = fleet.run_until_membership(targets, **wave)
+    launches["observability_fleet_wave"] = delivery_new_bits.launches
+    check(resolved.all(), "the scraped fleet wave did not resolve")
+    fleet.sync()
+    fsnap, ftext, fleet_report = scrape(fleet)
+    missing = [t for t in range(b) if f'tenant="{t}"' not in ftext]
+    check(not missing, f"tenant labels missing from the fleet's text: {missing[:8]}")
+    small, small_targets = fleet_clusters(OBSERVE["cpu_fleet"], 256, 6, 40, 300,
+                                          torch.device("cpu"), ((9, 4), (8, 3), (7, 2)),
+                                          telemetry=True)
+    small = TenantFleet.from_clusters(small)
+    small.run_until_membership(small_targets, **wave)
+    small.sync()
+    check(exposition.metric_names(ftext) == exposition.metric_names(small.prometheus_text()),
+          "the fleet's metric names differ from a 6-tenant CPU fleet's")
+    report["fleet"] = {"tenants": b, "n": fn, "n_slots": fn + extra, **fleet_report,
+                       "memory": fsnap["engine"]["memory"]}
+    del fleet, clusters
+
+    # Phase 15's stream cluster under a Supervisor, scraped between waves.
+    sn, waves_n = STREAM["n"], OBSERVE["stream_waves"]
+    s_slots = sn + 2 * STREAM["waves"]
+    stream_sides = {}
+    for side, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        target = stream_cluster(sn, s_slots, STREAM["cohorts"], STREAM["waves"] * STREAM["rounds"],
+                                7_200, device)
+        sup = Supervisor(target, rounds_per_wave=STREAM["rounds"], depth=STREAM["depth"])
+        delivery_new_bits.launches = 0
+        scrapes = []
+        for wave in PoissonChurn(sn, s_slots, rate=STREAM["rate"], seed=7_300).waves(waves_n):
+            sup.submit(wave)
+            scrapes.append(scrape(target))
+        sup.drain()
+        if side == "card":
+            launches["observability_stream"] = delivery_new_bits.launches
+        ssnap, stext, _ = scrapes[-1]
+        check({"stream", "recovery"} <= ssnap["engine"].keys(),
+              f"stream scrape sections: {sorted(ssnap['engine'])}")
+        stream_sides[side] = (exposition.metric_names(stext), [r for _, _, r in scrapes])
+    check(stream_sides["card"][0] == stream_sides["cpu"][0],
+          "the supervised stream's metric names differ card vs cpu")
+    per_wave = stream_sides["card"][1]
+    report["stream"] = {"n": sn, "n_slots": s_slots, "waves": waves_n,
+                        "scrape_ms": [r["scrape_ms"] for r in per_wave],
+                        "render_ms": [r["render_ms"] for r in per_wave],
+                        "median_scrape_ms": statistics.median(r["scrape_ms"] for r in per_wave),
+                        "median_render_ms": statistics.median(r["render_ms"] for r in per_wave),
+                        "text_bytes": per_wave[-1]["text_bytes"],
+                        "reads_per_scrape": per_wave[-1]["reads_per_scrape"]}
+
+    # The profiler around one full-width churn, inside an annotated span.
+    root = tempfile.mkdtemp(prefix="rapid-profile-")
+    try:
+        vc, _ = churn_cluster(n, n_join, HEADLINE["n_crash"], HEADLINE["cohorts"], 11, dev,
+                              **planes)
+        torch.cuda.synchronize(dev)
+        delivery_new_bits.launches = 0
+        start = time.perf_counter()
+        with profiling.trace(root):
+            with profiling.annotate("churn"):
+                profiled = resolve(vc, n)
+        profiled_ms = (time.perf_counter() - start) * 1e3
+        launches["observability_profiled_churn"] = delivery_new_bits.launches
+        check(profiled == churned, f"profiled churn {profiled} != unprofiled {churned}")
+        path = Path(profiling.trace_file(root))
+        start = time.perf_counter()
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        report["profiler"] = {
+            "export_bytes": path.stat().st_size, "events": len(events),
+            "profiled_churn_ms": profiled_ms, "load_ms": (time.perf_counter() - start) * 1e3,
+            "delivery_kernel_events": sum(
+                1 for e in events
+                if e.get("cat") == "kernel" and "delivery_new_bits_kernel" in e.get("name", "")),
+            "churn_spans": sum(1 for e in events if e.get("name") == "churn"),
+        }
+        check(report["profiler"]["delivery_kernel_events"] > 0,
+              "the profiler's trace holds no delivery_new_bits_kernel event")
+        check(report["profiler"]["churn_spans"] > 0, "the profiler's trace holds no churn span")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    facts = engine_telemetry.compiled_memory_analysis("delivery")
+    check(facts is not None, "no ptxas report for the delivery kernel")
+    report["ptxas"] = facts
+    for path_name, count in launches.items():
+        check(count > 0, f"{path_name} launched no delivery kernel")
+    emit({"phase": "observability", **report, "delivery_launches": launches})
+    return launches, facts
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--parent", metavar="DIR",
@@ -2026,6 +2269,8 @@ def main(argv=None) -> int:
                                      late_paths["loss_variant"])
     captured.update(timed("late_kernel_paths", phase_kernel_paths, late_paths))
     late_paths.clear()
+    observed, ptxas = timed("observability", phase_observability)
+    launches.update(observed)
     emit({"phase": "timing", "seconds": seconds, "total_seconds": time.perf_counter() - start,
           "launch_us_after": launch})
 
@@ -2048,6 +2293,7 @@ def main(argv=None) -> int:
         "bound_ms": main_mode["bound_ms"],
         "bound_by": main_mode["bound_by"],
         "library_ms": None,
+        "ptxas": ptxas,
         "cold_ms": main_mode["cold_ms"],
         "fleet_shape": {key: fleet_mode[key] for key in keys},
         "mode0": {shape: {key: m[key] for key in keys} for shape, m in (

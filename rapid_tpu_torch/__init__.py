@@ -8,8 +8,34 @@ compact state layout) and :class:`rapid_tpu_torch.tenancy.TenantFleet` (B
 independent clusters per round), the serving tier
 (:mod:`rapid_tpu_torch.serving`) and the engine side of the chaos
 subsystem (:mod:`rapid_tpu_torch.sim`, :mod:`rapid_tpu_torch.tenancy.chaos`).
-They run on CUDA unless given ``device="cpu"``. uint32 lanes are stored as
-int32 bit patterns (:mod:`rapid_tpu_torch._u32`), uint16 lanes as int16 bit
-patterns (:mod:`rapid_tpu_torch._narrow`). The package imports ``torch``
-and numpy only.
+They run on CUDA unless given ``device="cpu"``. Both drivers are scraped
+through ``health()``, ``telemetry_snapshot()`` and ``prometheus_text()``
+(the JAX package's snapshot and text, :mod:`rapid_tpu_torch.utils`).
+uint32 lanes are stored as int32 bit patterns (:mod:`rapid_tpu_torch._u32`),
+uint16 lanes as int16 bit patterns (:mod:`rapid_tpu_torch._narrow`). The
+package imports ``torch`` and numpy only.
 """
+
+import importlib
+
+_EXPORTS = {
+    "VirtualCluster": "rapid_tpu_torch.models.virtual_cluster",
+    "TenantFleet": "rapid_tpu_torch.tenancy.fleet",
+    "NodeHealth": "rapid_tpu_torch.utils.health",
+    "aggregate_health": "rapid_tpu_torch.utils.health",
+    "metric_names": "rapid_tpu_torch.utils.exposition",
+    "prometheus_text": "rapid_tpu_torch.utils.exposition",
+    "CompileDelta": "rapid_tpu_torch.utils.engine_telemetry",
+    "compile_snapshot": "rapid_tpu_torch.utils.engine_telemetry",
+    "device_memory_snapshot": "rapid_tpu_torch.utils.engine_telemetry",
+}
+
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name):
+    # Lazy: the submodules import this package first.
+    module = _EXPORTS.get(name)
+    if module is None:
+        raise AttributeError(f"module 'rapid_tpu_torch' has no attribute {name!r}")
+    return getattr(importlib.import_module(module), name)

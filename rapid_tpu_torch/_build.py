@@ -4,7 +4,13 @@ Each ``csrc/<name>.cu`` exposes a plain C entry point and is compiled by
 ``nvcc`` into ``build/lib<name>-<hash>.so`` inside this package (a directory
 git ignores), then loaded with ``ctypes``. The hash covers the source and
 the flags, so an edited source is rebuilt. No PyTorch header is included,
-so a build takes seconds.
+so a build takes seconds. ptxas's ``-v`` report (registers, shared memory,
+spills per kernel instance) is kept beside the ``.so`` as
+``lib<name>-<hash>.ptxas``.
+
+Every first lookup of a kernel in this process (a hit when its ``.so`` is
+already built, a miss otherwise) and every build with its wall time is
+reported to ``utils/engine_telemetry``'s collector.
 
 There is no fallback: without ``nvcc``, or when it fails, the build raises.
 """
@@ -17,6 +23,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 PKG = Path(__file__).resolve().parent
@@ -29,6 +36,8 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _loaded: dict = {}
+#: Kernel names looked up in this process (each one a hit or a miss once).
+_requested: set = set()
 #: name -> nvcc's stderr (ptxas register / spill report) of the last build.
 build_log: dict = {}
 
@@ -55,22 +64,35 @@ def _target(name: str) -> Path:
     return BUILD / f"lib{name}-{digest}.so"
 
 
+def report_path(name: str) -> Path:
+    """Where ptxas's report of the build of ``csrc/<name>.cu`` is kept."""
+    return _target(name).with_suffix(".ptxas")
+
+
+def _collector():
+    from rapid_tpu_torch.utils.engine_telemetry import _COLLECTOR
+
+    return _COLLECTOR
+
+
 def _start(name: str):
     BUILD.mkdir(exist_ok=True)
     out = _target(name)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    return proc, tmp, out
+    return proc, tmp, out, time.perf_counter()
 
 
-def _finish(name: str, proc, tmp: Path, out: Path) -> str:
+def _finish(name: str, proc, tmp: Path, out: Path, start: float) -> str:
     """Wait for one build; returns its error text ('' on success)."""
     stdout, stderr = proc.communicate()
+    _collector().on_build((time.perf_counter() - start) * 1e3)
     build_log[name] = stderr
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         return f"nvcc failed on csrc/{name}.cu:\n{stdout}{stderr}"
+    report_path(name).write_text(stderr)
     os.replace(tmp, out)
     return ""
 
@@ -81,6 +103,10 @@ def build_all(names=None) -> None:
     failed."""
     names = sources() if names is None else list(names)
     with _lock:
+        for n in names:
+            if n not in _requested:
+                _requested.add(n)
+                _collector().on_lookup(_target(n).exists())
         started = [(n, *_start(n)) for n in names if not _target(n).exists()]
         errors = [_finish(*job) for job in started]
     if any(errors):

@@ -54,6 +54,7 @@ kernel still emits uint32 words; they are narrowed into the report lane.
 
 from __future__ import annotations
 
+import time
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -87,8 +88,9 @@ from rapid_tpu_torch.ops.rings import (
     predecessor_of_keys,
     ring_topology_from_perm,
 )
-from rapid_tpu_torch.utils import engine_telemetry
+from rapid_tpu_torch.utils import engine_telemetry, exposition
 from rapid_tpu_torch.utils.dispatch import DispatchSeam
+from rapid_tpu_torch.utils.health import NodeHealth
 from rapid_tpu_torch.utils.metrics import Metrics
 
 
@@ -751,6 +753,7 @@ class VirtualCluster(DispatchSeam):
             engine_telemetry.zero_activity_summary(cfg.n, cfg.c) if cfg.telemetry else None
         )
         self._trace = engine_telemetry.zero_trace_summary(cfg.trace) if cfg.trace else None
+        engine_telemetry.install()
 
     # -- construction ---------------------------------------------------
 
@@ -1143,6 +1146,19 @@ class VirtualCluster(DispatchSeam):
         self.metrics.inc("engine_cuts_committed", cuts)
         return steps, cuts, resolved, tuple(sizes)
 
+    def timed_convergence(self, max_steps: int = 64) -> Tuple[int, float]:
+        """(rounds, wall_ms) of one :meth:`run_until_converged`, the card
+        synchronized before the clock stops (callers run one throwaway
+        convergence first, as for the JAX package's compile)."""
+        start = time.perf_counter()
+        rounds, events = self.run_until_converged(max_steps)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        elapsed_ms = (time.perf_counter() - start) * 1000.0
+        if events is None:
+            raise AssertionError("did not converge")
+        return rounds, elapsed_ms
+
     # -- observers ------------------------------------------------------
 
     @property
@@ -1152,7 +1168,7 @@ class VirtualCluster(DispatchSeam):
 
     @property
     def alive_mask(self) -> np.ndarray:
-        mask = self.state.alive.cpu().numpy()
+        mask = np.array(_host.read(self.state.alive), dtype=bool)
         self._account_d2h(mask.nbytes)
         return mask
 
@@ -1166,3 +1182,53 @@ class VirtualCluster(DispatchSeam):
         self._account_d2h(8)
         hi, lo = _host.read(_u32.widen(torch.stack([self.state.config_hi, self.state.config_lo])))
         return (hi << 32) | lo
+
+    # -- observability (utils/exposition.py schema) ---------------------
+
+    def health(self) -> NodeHealth:
+        """Cluster-wide health of the N virtual members in the host
+        vocabulary: PROPOSING while churn is in flight (a crashed slot still
+        alive, or a join wave not yet admitted), STABLE otherwise. One
+        device reduction, read once (4 bytes, as the JAX driver charges)."""
+        pending = _host.read(
+            (self.state.alive & self.faults.crashed).sum(dtype=torch.int32)
+            + self.state.join_pending.sum(dtype=torch.int32)
+        )
+        self._account_d2h(4)
+        return NodeHealth.PROPOSING if pending else NodeHealth.STABLE
+
+    def telemetry_snapshot(self) -> dict:
+        """The engine's unified telemetry snapshot, the JAX driver's keys
+        and sections: the ``engine`` section carries the build capture
+        (``compile``), the device memory gauges of this cluster's device
+        (``memory``), and exactly when JAX's would, ``stream`` (a
+        ``StreamDriver`` attached), ``recovery`` (a ``Supervisor``
+        attached), ``activity`` (the plane on) and ``trace`` (the ring on).
+        The plane sections are the host caches of the last :meth:`sync`: a
+        scrape never reads the lanes. The reads it does make (config id,
+        membership, health, epoch) are charged as JAX charges them; each
+        waits for the card, so scrape between a stream's waves."""
+        return {
+            "node": f"virtual-cluster/{self.cfg.n}",
+            "configuration_id": self.config_id,
+            "membership_size": self.membership_size,
+            "health": self.health().value,
+            "config_epoch": self.config_epoch,
+            "metrics": self.metrics.summary(),
+            "engine": {
+                "n": self.cfg.n,
+                "cohorts": self.cfg.c,
+                "use_pallas": self.cfg.use_pallas,
+                "compile": engine_telemetry.compile_snapshot(),
+                "memory": engine_telemetry.device_memory_snapshot(self.device),
+                **({"stream": self.stream.snapshot()} if self.stream is not None else {}),
+                **({"recovery": self.recovery.snapshot()} if self.recovery is not None else {}),
+                **({"activity": dict(self._activity)} if self._activity is not None else {}),
+                **({"trace": self.trace} if self._trace is not None else {}),
+            },
+            "transport": {},
+            "recorder": None,
+        }
+
+    def prometheus_text(self) -> str:
+        return exposition.prometheus_text(self.telemetry_snapshot())

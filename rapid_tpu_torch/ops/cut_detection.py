@@ -14,6 +14,7 @@ from typing import NamedTuple
 import torch
 
 from rapid_tpu_torch import _host, _narrow
+from rapid_tpu_torch.models.state import resolve_device
 from rapid_tpu_torch.ops.kernels import per_batch, popcount32, watermark_merge_classify
 
 
@@ -28,6 +29,9 @@ class CutState(NamedTuple):
 
     @staticmethod
     def create(n: int, k: int, device=None) -> "CutState":
+        """An empty detector on ``device`` (CUDA unless the caller names
+        another, as every entry point of the port)."""
+        device = resolve_device(device)
         return CutState(
             reports=torch.zeros((n, k), dtype=torch.bool, device=device),
             seen_down=torch.zeros((), dtype=torch.bool, device=device),
@@ -187,7 +191,12 @@ def telemetry_cut_masks(prev_bits, new_bits, final_bits, subject_mask, h, l):
 def alerts_to_report_matrix(n: int, k: int, dst_idx, ring_numbers, device=None) -> torch.Tensor:
     """Scatter (subject slot, ring) alerts, two equal-length index lists,
     into an ``[n, k]`` bool matrix; entries with a negative slot or a ring
-    outside ``[0, k)`` are dropped (padding)."""
+    outside ``[0, k)`` are dropped (padding). The matrix lands on
+    ``device``; without one, on the device of the index lists when they
+    are already tensors, else on CUDA (:func:`resolve_device`)."""
+    if device is None:
+        device = next((x.device for x in (dst_idx, ring_numbers) if torch.is_tensor(x)), None)
+    device = resolve_device(device)
     dst = torch.as_tensor(dst_idx, dtype=torch.int64, device=device).reshape(-1)
     rings = torch.as_tensor(ring_numbers, dtype=torch.int64, device=device).reshape(-1)
     valid = (dst >= 0) & (rings >= 0) & (rings < k)

@@ -71,8 +71,9 @@ from rapid_tpu_torch.models.virtual_cluster import (
 )
 from rapid_tpu_torch.models.virtual_cluster import telemetry_digest as fleet_telemetry_digest
 from rapid_tpu_torch.models.virtual_cluster import trace_digest as fleet_trace_digest
-from rapid_tpu_torch.utils import engine_telemetry
+from rapid_tpu_torch.utils import engine_telemetry, exposition
 from rapid_tpu_torch.utils.dispatch import DispatchSeam
+from rapid_tpu_torch.utils.health import NodeHealth
 from rapid_tpu_torch.utils.metrics import Metrics
 
 #: The EngineConfig fields that vary per tenant, as :class:`TenantKnobs`
@@ -315,6 +316,7 @@ class TenantFleet(DispatchSeam):
             [engine_telemetry.zero_trace_summary(cfg.trace) for _ in range(b)]
             if cfg.trace else None
         )
+        engine_telemetry.install()
 
     # -- construction ---------------------------------------------------
 
@@ -631,7 +633,7 @@ class TenantFleet(DispatchSeam):
         return map_lanes(lambda x: x[i], self.state)
 
     def membership_sizes(self) -> np.ndarray:
-        out = _np(self.state.n_members)
+        out = np.asarray(_host.read(self.state.n_members), dtype=np.int32)
         self._account_d2h(out.nbytes)
         return out
 
@@ -645,3 +647,63 @@ class TenantFleet(DispatchSeam):
         out = _np(self.state.config_epoch)
         self._account_d2h(out.nbytes)
         return out
+
+    def health(self) -> NodeHealth:
+        """Fleet-wide health in the host vocabulary: PROPOSING while any
+        tenant has churn in flight, STABLE otherwise (one reduction over
+        every tenant, read once: 4 bytes)."""
+        pending = _host.read(
+            (self.state.alive & self.faults.crashed).sum(dtype=torch.int32)
+            + self.state.join_pending.sum(dtype=torch.int32)
+        )
+        self._account_d2h(4)
+        return NodeHealth.PROPOSING if pending else NodeHealth.STABLE
+
+    # -- observability (utils/exposition.py schema) ---------------------
+
+    def telemetry_snapshot(self) -> dict:
+        """The fleet's unified telemetry snapshot: the single cluster's
+        schema plus the ``tenancy`` block (tenant count, per-dispatch tenant
+        throughput, quarantine census), the pooled ``activity`` with its
+        per-tenant ``tenant_activity`` (the plane on), ``tenant_trace`` (the
+        ring on), ``stream`` and ``recovery`` exactly when the JAX fleet's
+        carry them. The plane sections are the host caches of the last
+        refresh."""
+        counters = self.metrics.counters
+        dispatches = counters.get("engine_dispatches", 0)
+        tenant_rounds = counters.get("engine_tenant_rounds", 0)
+        return {
+            "node": f"tenant-fleet/{self.b}x{self.cfg.n}",
+            "membership_size": int(self.membership_sizes().sum()),
+            "health": self.health().value,
+            "metrics": self.metrics.summary(),
+            "engine": {
+                "n": self.cfg.n,
+                "cohorts": self.cfg.c,
+                "use_pallas": self.cfg.use_pallas,
+                "compile": engine_telemetry.compile_snapshot(),
+                "memory": engine_telemetry.device_memory_snapshot(self.device),
+                "tenancy": {
+                    "tenants": self.b,
+                    "tenant_rounds_total": int(tenant_rounds),
+                    "tenant_cuts_total": int(counters.get("engine_tenant_cuts", 0)),
+                    "tenant_rounds_per_dispatch": round(
+                        tenant_rounds / dispatches, 3
+                    ) if dispatches else 0.0,
+                    "quarantined": len(self._quarantined),
+                },
+                **(
+                    {"activity": self.activity, "tenant_activity": self.tenant_activity}
+                    if self._activity is not None
+                    else {}
+                ),
+                **({"tenant_trace": self.tenant_trace} if self._trace is not None else {}),
+                **({"stream": self.stream.snapshot()} if self.stream is not None else {}),
+                **({"recovery": self.recovery.snapshot()} if self.recovery is not None else {}),
+            },
+            "transport": {},
+            "recorder": None,
+        }
+
+    def prometheus_text(self) -> str:
+        return exposition.prometheus_text(self.telemetry_snapshot())

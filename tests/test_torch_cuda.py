@@ -8,7 +8,8 @@ the wide and the compact layout, an endpoint cluster
 (``VirtualCluster.from_endpoints``), a stream of churn waves through
 the serving driver against the batch drive and the CPU, its path free of
 host reads and synchronizing calls, a chaos fleet, the loss variant's
-gated delivery and a lie injected into a card cluster.
+gated delivery, a lie injected into a card cluster, and the scrape's
+allocator gauges, build capture and profiler trace.
 Every test needs a CUDA card and ``nvcc``
 and skips without them. On a GPU machine, from the root of a checkout
 (``--noconftest`` because the suite's conftest configures JAX, which the
@@ -374,3 +375,48 @@ def test_false_alert_injection_on_a_card_cluster(card):
     np.testing.assert_array_equal(got["cuda"][1], got["cpu"][1])
     np.testing.assert_array_equal(got["cuda"][2], got["cpu"][2])
     assert not got["cuda"][2][5]
+
+
+@pytest.mark.cuda
+def test_scrape_reads_the_allocator_and_the_build_capture(card):
+    from rapid_tpu_torch.models.state import state_bytes_total
+    from rapid_tpu_torch.utils.engine_telemetry import compiled_memory_analysis
+
+    vc, _ = churn_cluster(4096, 102, 102, 40, 7, card, telemetry=True, trace=16)
+    resolve(vc, 4096)
+    vc.sync()
+    snap = vc.telemetry_snapshot()
+    memory, build = snap["engine"]["memory"], snap["engine"]["compile"]
+    assert None not in memory.values()
+    assert memory["device_bytes_in_use"] == torch.cuda.memory_allocated(card)
+    assert memory["device_peak_bytes"] >= state_bytes_total(vc.cfg)
+    assert build["cache_requests"] == build["persistent_cache_hits"] + build["persistent_cache_misses"]
+    assert build["cache_requests"] >= 1
+    assert build["compiles"] == build["persistent_cache_misses"] == build["compile_ms"]["count"]
+    facts = compiled_memory_analysis("delivery")
+    assert facts is not None and len(facts) == 6  # K=10 and generic, three delay modes
+    assert all(f["registers"] > 0 for f in facts.values())
+    assert 'rapid_engine_device_bytes_in_use{node="virtual-cluster/4198"} ' in vc.prometheus_text()
+
+
+@pytest.mark.cuda
+def test_profiler_trace_sees_the_delivery_kernel(card, tmp_path):
+    import json
+
+    from rapid_tpu_torch.utils import profiling
+
+    results = []
+    for profiled in (True, False):
+        vc, _ = churn_cluster(4096, 102, 102, 40, 7, card)
+        if profiled:
+            with profiling.trace(str(tmp_path)):
+                with profiling.annotate("churn"):
+                    results.append(resolve(vc, 4096))
+        else:
+            results.append(resolve(vc, 4096))
+    assert results[0] == results[1]
+    with open(profiling.trace_file(str(tmp_path))) as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("name") == "churn" for e in events)
+    assert any(e.get("cat") == "kernel" and "delivery_new_bits_kernel" in e.get("name", "")
+               for e in events)

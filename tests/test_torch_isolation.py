@@ -3,7 +3,9 @@
 - Importing every ``rapid_tpu_torch`` module and ``chip_smoke`` loads
   neither ``jax`` nor anything of ``rapid_tpu`` (checked in a fresh
   interpreter, since this test process has both loaded), and neither does
-  importing the serving tier alone (``rapid_tpu_torch.serving``).
+  importing the serving tier alone (``rapid_tpu_torch.serving``) or the
+  observability tier alone (``utils``: health, clock, flight recorder,
+  exposition, engine telemetry, profiling).
 - The delivery wrapper raises on inputs its kernel does not take instead of
   quietly taking the plain version.
 """
@@ -62,6 +64,28 @@ def test_serving_tier_imports_no_jax_and_no_rapid_tpu():
         check=True,
     ).stdout.strip()
     assert out == "[]", f"the serving tier loaded: {out}"
+
+
+_OBSERVABILITY_PROBE = """
+import sys
+from rapid_tpu_torch.utils import (
+    clock, engine_telemetry, exposition, flight_recorder, health, profiling,
+)
+from rapid_tpu_torch import CompileDelta, prometheus_text
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "rapid_tpu"))
+print(bad)
+"""
+
+
+def test_observability_tier_imports_no_jax_and_no_rapid_tpu():
+    # The copies of jax-free JAX modules (health, clock, flight recorder,
+    # exposition) and the build, memory and profiler capture stand alone.
+    out = subprocess.run(
+        [sys.executable, "-c", _OBSERVABILITY_PROBE], cwd=REPO, capture_output=True, text=True,
+        check=True,
+    ).stdout.strip()
+    assert out == "[]", f"the observability tier loaded: {out}"
 
 
 def _args(n=64, k=3, c=5):

@@ -523,7 +523,7 @@ def test_process_alert_batch_matches_jax(seen, idx):
     )
     for g, w in zip((*got.state, *got[1:]), (*want.state, *want[1:])):
         same(g, w)
-    empty = tcut.CutState.create(n, k)
+    empty = tcut.CutState.create(n, k, device="cpu")
     assert empty.reports.shape == (n, k) and not empty.seen_down
 
 
@@ -531,8 +531,34 @@ def test_alerts_to_report_matrix_matches_jax():
     n, k = 12, 5
     dst = [0, 3, 3, -1, 11, 12, 40, 2, 7]
     rings = [0, 4, 4, 2, 5, 1, 0, -1, 3]  # padding, an out-of-range ring, slots past n
-    same(tcut.alerts_to_report_matrix(n, k, dst, rings), jcut.alerts_to_report_matrix(n, k, dst, rings))
-    same(tcut.alerts_to_report_matrix(n, k, [], []), jcut.alerts_to_report_matrix(n, k, [], []))
+    same(tcut.alerts_to_report_matrix(n, k, dst, rings, device="cpu"),
+         jcut.alerts_to_report_matrix(n, k, dst, rings))
+    same(tcut.alerts_to_report_matrix(n, k, [], [], device="cpu"),
+         jcut.alerts_to_report_matrix(n, k, [], []))
+    # Index lists already on a device keep the matrix there.
+    on_cpu = tcut.alerts_to_report_matrix(n, k, torch.tensor(dst), torch.tensor(rings))
+    assert on_cpu.device == CPU
+    same(on_cpu, jcut.alerts_to_report_matrix(n, k, dst, rings))
+
+
+@pytest.mark.parametrize("build", ["cut_state", "report_matrix", "virtual_cluster"])
+def test_cut_detection_constructors_default_to_cuda(build, monkeypatch):
+    # Without a device they resolve to CUDA, as every entry point of the
+    # port does: with no card that raises VirtualCluster.create's error
+    # instead of quietly building on the CPU.
+    from rapid_tpu_torch.models.virtual_cluster import VirtualCluster
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = {
+        "cut_state": lambda: tcut.CutState.create(4, 3),
+        "report_matrix": lambda: tcut.alerts_to_report_matrix(4, 3, [1], [2]),
+        "virtual_cluster": lambda: VirtualCluster.create(8, k=3, h=3, l=1),
+    }
+    with pytest.raises(RuntimeError, match="no card is available") as err:
+        calls[build]()
+    with pytest.raises(RuntimeError) as reference:
+        VirtualCluster.create(8, k=3, h=3, l=1)
+    assert str(err.value) == str(reference.value)
 
 
 @pytest.mark.parametrize("k", [3, 10, 32])
