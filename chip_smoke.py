@@ -133,7 +133,26 @@ exits non-zero:
    under ``profiling.trace`` inside ``annotate("churn")``: the exported
    trace holds the delivery kernel and the span, and the churn's results
    equal the unprofiled one's. Last, ptxas's facts of every delivery
-   kernel instance (``compiled_memory_analysis("delivery")``).
+   kernel instance (``compiled_memory_analysis("delivery")``);
+20. host_path: the host membership path (``rapid_tpu_torch.protocol``)
+   with its two device adapters on the card, at the paper's K/H/L =
+   10/9/3. (a) A ``MembershipView`` of 2,000 endpoints and a
+   ``DeviceCutDetector`` (4,096 slots) fed per-observer
+   ``BatchedAlertMessage``s in a seeded shuffled order: a 1% crash, a
+   20-joiner wave and a crash under flux that clears only through the
+   implicit invalidation; every proposal equal to the CPU adapter's and
+   the host ``MultiNodeCutDetector``'s, one counted read a pass; ms, reads
+   and uploaded bytes per batch, and one wave profiled. (b) 2,000 seeded
+   fast-round votes over three proposals (1,600 / 300 / 100, one with a
+   high hash lane of 2**31 or above) through ``FastPaxos`` with a
+   ``DeviceVoteTally`` and with the host tally: the same decision at the
+   same vote, the votes before quorum under the sync check, one read a
+   tally; µs a vote, ms a tally, the tallies profiled. (c) 50 nodes
+   through ``Cluster.start`` / ``Cluster.join`` on one in-process network,
+   every node on both adapters on the card, 5 crashed, and the same with
+   the host's detector and tally; then ``examples/host_scale_ceiling.py``'s
+   service-level crash at N=200 with device and with host adapters, to
+   equal final configurations. No delivery kernel is launched.
 
 A kernel's bound (``delivery_bound``) is the larger of its bytes (each
 input once, the output once) over the HBM rate and the delay draws its
@@ -143,7 +162,8 @@ operations of one draw over the int32 issue rate.
 The delivery kernel's launch count is zeroed just before each of the
 paths 4, 5, 8, 12 (churn and 1M), 13, 14, 15 (each stream), 16 (each drill
 with its twin), 17 (the timed fleet), 18 (the three churns) and 19 (each
-scraped path and the profiled churn) and read just after. Then the kernels
+scraped path and the profiled churn) and read just after; phase 20 zeroes
+it and must leave it at 0. Then the kernels
 line (with ptxas's facts), the card's
 name and power limit from ``nvidia-smi``, and as the last line
 ``{"ok": true, "device": {...}}``.
@@ -2211,6 +2231,405 @@ def phase_observability(dev):
     return launches, facts
 
 
+# -- phase 20: the host membership path --------------------------------------
+
+# The paper's {K, H, L} (SURVEY.md:373-381) at N = 2,000 for the two device
+# adapters, with a 1% crash, a 20-joiner wave and one crash under flux;
+# 2,000 fast-round votes over three proposals; whole clusters at
+# ClusterTest.java's 50 nodes (5 crashed); the service-level crash at N=200
+# (EVALUATION.md §4b: the asyncio path's host cost per view change climbs
+# steeply past it).
+HOST = dict(n=2_000, k=10, h=9, l=3, crash=20, join=20, votes=(1_600, 300, 100),
+            cluster=50, cluster_crash=5, services=200)
+
+
+def host_view(n, k, seed):
+    """A ``MembershipView`` of n seeded endpoints with injected identifiers,
+    and the endpoints in creation order."""
+    from rapid_tpu_torch.protocol.view import MembershipView
+    from rapid_tpu_torch.types import Endpoint, NodeId
+
+    rng = np.random.default_rng(seed)
+    ports = rng.choice(np.arange(1024, 65536), size=n, replace=False)
+    endpoints = [Endpoint(f"10.{40 + i // 65536}.{(i // 256) % 256}.{i % 256}", int(p))
+                 for i, p in enumerate(ports)]
+    view = MembershipView(k, node_ids=[NodeId(7, i) for i in range(n)], endpoints=endpoints)
+    return view, endpoints
+
+
+def host_alert_waves(view, endpoints, h, seed):
+    """Phase 20 (a)'s alert waves, each a list of per-observer
+    ``BatchedAlertMessage``s in a seeded shuffled order: a crash of
+    ``HOST["crash"]`` members (DOWN from all K observers each), a wave of
+    ``HOST["join"]`` joiners (UP from each joiner's expected observers), and
+    a crash under flux: H-1 observers report the subject, and the other
+    K-H+1 have crashed themselves and are reported by all of theirs, so the
+    subject clears H only through the implicit invalidation."""
+    import random
+
+    from rapid_tpu_torch.types import (
+        AlertMessage, BatchedAlertMessage, EdgeStatus, Endpoint, NodeId,
+    )
+
+    rng = random.Random(seed)
+    cid = view.configuration_id
+    down, up = EdgeStatus.DOWN, EdgeStatus.UP
+
+    def batched(alerts):
+        by_src = {}
+        for alert in alerts:
+            by_src.setdefault(alert.edge_src, []).append(alert)
+        batches = [BatchedAlertMessage(src, tuple(msgs)) for src, msgs in by_src.items()]
+        rng.shuffle(batches)
+        return batches
+
+    crashed = rng.sample(endpoints, HOST["crash"])
+    crash = [AlertMessage(o, s, down, cid, (r,))
+             for s in crashed for r, o in enumerate(view.observers_of(s))]
+    joiners = [Endpoint(f"10.99.{i // 256}.{i % 256}", 7000 + i) for i in range(HOST["join"])]
+    join = [AlertMessage(o, j, up, cid, (r,), NodeId(9, i))
+            for i, j in enumerate(joiners) for r, o in enumerate(view.expected_observers_of(j))]
+    subject = rng.choice([e for e in endpoints if e not in crashed])
+    observers = view.observers_of(subject)
+    flux = [AlertMessage(observers[r], subject, down, cid, (r,)) for r in range(h - 1)]
+    for o in observers[h - 1:]:
+        flux += [AlertMessage(oo, o, down, cid, (r,)) for r, oo in enumerate(view.observers_of(o))]
+    return {"crash": batched(crash), "join": batched(join), "flux": batched(flux)}, (
+        set(crashed), set(joiners), {subject, *observers[h - 1:]})
+
+
+def host_cut_detectors(dev):
+    """Phase 20 (a): the three waves through a ``DeviceCutDetector`` on the
+    card (default 4,096 slots), the same on the CPU and the host's
+    ``MultiNodeCutDetector``, batch by batch; ``clear()`` between waves, as
+    the service clears at a view change."""
+    from rapid_tpu_torch import _host
+    from rapid_tpu_torch.protocol import DeviceCutDetector, MultiNodeCutDetector
+
+    k, h, l = HOST["k"], HOST["h"], HOST["l"]
+    view, endpoints = host_view(HOST["n"], k, 20)
+    waves, expected = host_alert_waves(view, endpoints, h, 21)
+    # A warm-up detector takes the card's first launches of every op.
+    warm = DeviceCutDetector(k, h, l, device=dev)
+    for batch in waves["crash"]:
+        warm.aggregate_batch(batch.messages, view)
+    detectors = {"card": DeviceCutDetector(k, h, l, device=dev),
+                 "cpu": DeviceCutDetector(k, h, l, device="cpu"),
+                 "host": MultiNodeCutDetector(k, h, l)}
+    check(detectors["card"].max_slots == 4096, "the card detector is not at the default slots")
+    report = {}
+    for wave, want in zip(("crash", "join", "flux"), expected):
+        proposals = {name: [] for name in detectors}
+        ms = {name: [] for name in detectors}
+        card = detectors["card"]
+        passes0, bytes0, card_reads = card.batches, card.bytes_uploaded, 0
+        for batch in waves[wave]:
+            for name, det in detectors.items():
+                reads0 = _host.read.count
+                start = time.perf_counter()
+                out = det.aggregate_batch(batch.messages, view)
+                ms[name].append((time.perf_counter() - start) * 1e3)
+                card_reads += _host.read.count - reads0 if name == "card" else 0
+                proposals[name].append(sorted(str(e) for e in out))
+        released = {e for p in proposals["card"] for e in p}
+        check(proposals["card"] == proposals["cpu"] == proposals["host"],
+              f"{wave}: the card detector's proposals differ from the CPU's or the host's")
+        check(released == {str(e) for e in want}, f"{wave}: released {len(released)} of {len(want)}")
+        batches = len(waves[wave])
+        check(card_reads == card.batches - passes0, f"{wave}: not one read a pass on the card")
+        report[wave] = {
+            "batches": batches, "proposals": sum(1 for p in proposals["card"] if p),
+            "released": len(released),
+            "card_ms_per_batch": statistics.median(ms["card"]),
+            "cpu_device_ms_per_batch": statistics.median(ms["cpu"]),
+            "host_ms_per_batch": statistics.median(ms["host"]),
+            "card_passes": card.batches - passes0,
+            "card_reads_per_batch": card_reads / batches,
+            "card_bytes_uploaded_per_batch": (card.bytes_uploaded - bytes0) / batches,
+        }
+        for det in detectors.values():
+            det.clear()
+    if dev.type == "cuda":
+        det = DeviceCutDetector(k, h, l, device=dev)
+        _, prof = profile_run(dev, lambda: [det.aggregate_batch(b.messages, view)
+                                            for b in waves["crash"]])
+        report["crash_profiled"] = per_call(prof, det.batches)
+    return report
+
+
+def per_call(prof, calls):
+    """A profiled run's kernels, host ops and times divided by its calls."""
+    return {"calls": calls, "kernels_per_call": prof["device_kernels"] / calls,
+            "host_ops_per_call": prof["host_ops"] / calls,
+            "device_ms_per_call": prof["device_ms"] / calls,
+            "wall_ms_per_call": prof["wall_ms"] / calls,
+            "device_busy_share": prof["device_busy_share"]}
+
+
+def host_vote_tallies(dev):
+    """Phase 20 (b): 2,000 seeded votes over three proposals (1,600 / 300 /
+    100, the first with a high hash lane of 2**31 or above) through Fast
+    Paxos with a ``DeviceVoteTally`` on the card and with the host's tally:
+    the same decision at the same vote; every vote before quorum under the
+    sync check."""
+    import random
+
+    from rapid_tpu_torch import _host
+    from rapid_tpu_torch.ops.consensus import fast_paxos_quorum
+    from rapid_tpu_torch.protocol import DeviceVoteTally, FastPaxos
+    from rapid_tpu_torch.protocol.device_vote_tally import _proposal_hash_lanes
+    from rapid_tpu_torch.types import FastRoundPhase2bMessage
+    from rapid_tpu_torch.utils.clock import ManualClock
+
+    n = HOST["n"]
+    _, endpoints = host_view(n, HOST["k"], 22)
+    first = next(j for j in range(n) if _proposal_hash_lanes(
+        tuple(sorted(endpoints[j:j + 20])))[0] >= 1 << 31)
+    proposals = [tuple(sorted(endpoints[first:first + w])) for w in (20, 19, 21)]
+    rng = random.Random(23)
+    plan = [p for p, count in enumerate(HOST["votes"]) for _ in range(count)]
+    rng.shuffle(plan)
+    quorum = fast_paxos_quorum(n)
+
+    def run(tally):
+        decided = []
+        fp = FastPaxos(my_addr=endpoints[0], configuration_id=5, membership_size=n,
+                       broadcast_fn=lambda m: None, send_fn=lambda d, m: None,
+                       on_decide=decided.append, clock=ManualClock(), rng=random.Random(0),
+                       vote_tally=tally)
+        us, at = [], None
+        for i, (sender, p) in enumerate(zip(endpoints, plan)):
+            msg = FastRoundPhase2bMessage(sender=sender, configuration_id=5,
+                                          endpoints=proposals[p])
+            guard = (sync_checked() if tally is not None and dev.type == "cuda"
+                     and i < quorum - 1 else contextlib.nullcontext())
+            start = time.perf_counter()
+            with guard:
+                fp.handle_message(msg)
+            us.append((time.perf_counter() - start) * 1e6)
+            if decided and at is None:
+                at = i
+                break
+        return decided, at, us
+
+    run(DeviceVoteTally(n, device=dev))  # warm-up: the card's first launches
+    host = run(None)
+    tally = DeviceVoteTally(n, device=dev)
+    reads0 = _host.read.count
+    card = run(tally)
+    check(card[0] == host[0] == [proposals[0]], "the card tally decided another proposal")
+    check(card[1] == host[1], f"the card tally decided at vote {card[1]}, the host's at {host[1]}")
+    check(tally.tallies == card[1] - quorum + 2, "a tally ran before quorum")
+    reads = _host.read.count - reads0
+    check(reads == tally.tallies, f"{reads} reads for {tally.tallies} tallies on the card")
+    profiled = {}
+    if dev.type == "cuda":
+        again = DeviceVoteTally(n, device=dev)
+        _, prof = profile_run(dev, lambda: run(again))
+        profiled = {"tally_profiled": per_call(prof, again.tallies)}
+    return {**profiled, 
+        "votes": len(plan), "quorum": quorum, "decided_at_vote": card[1] + 1,
+        "winner_hi_lane": _proposal_hash_lanes(proposals[0])[0],
+        "tallies": tally.tallies, "reads_per_tally": reads / tally.tallies,
+        "bytes_uploaded_per_tally": tally.bytes_uploaded / tally.tallies,
+        "card_us_per_vote_before_quorum": statistics.mean(card[2][:quorum - 1]),
+        "host_us_per_vote_before_quorum": statistics.mean(host[2][:quorum - 1]),
+        "card_ms_per_tally": statistics.median(card[2][quorum - 1:]) / 1e3,
+        "host_ms_per_vote_after_quorum": statistics.median(host[2][quorum - 1:]) / 1e3,
+        "sync_checked_votes": quorum - 1,
+    }
+
+
+@contextlib.contextmanager
+def sync_checked():
+    """Every synchronizing CUDA call inside is an error."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def host_settings():
+    from rapid_tpu_torch.settings import Settings
+
+    s = Settings()
+    s.batching_window_ms = 20
+    s.failure_detector_interval_ms = 50
+    s.rpc_timeout_ms = 500
+    s.rpc_join_timeout_ms = 2000
+    s.rpc_probe_timeout_ms = 200
+    s.consensus_fallback_base_delay_ms = 2000
+    return s
+
+
+def decided_paths(services):
+    return sorted({e.fields.get("path") for s in services for e in s.recorder.events()
+                   if e.name.name == "CONSENSUS_DECIDED"})
+
+
+async def host_cluster_run(dev, adapters):
+    """Phase 20 (c), whole clusters: ``HOST["cluster"]`` nodes through
+    ``Cluster.start`` / ``Cluster.join`` on one in-process network with a
+    static failure detector, then ``HOST["cluster_crash"]`` crashed; with
+    ``adapters`` every node runs both device adapters on ``dev``."""
+    import asyncio
+    import random
+
+    from rapid_tpu_torch.messaging.inprocess import InProcessNetwork
+    from rapid_tpu_torch.monitoring.static_fd import StaticFailureDetectorFactory
+    from rapid_tpu_torch.protocol import Cluster, DeviceCutDetector, DeviceVoteTally
+    from rapid_tpu_torch.types import Endpoint
+
+    n, crash = HOST["cluster"], HOST["cluster_crash"]
+    network, fd, settings = InProcessNetwork(), StaticFailureDetectorFactory(), host_settings()
+    kw = dict(settings=settings, network=network, fd_factory=fd)
+    if adapters:
+        kw.update(cut_detector_factory=functools.partial(DeviceCutDetector, device=dev),
+                  vote_tally_factory=functools.partial(DeviceVoteTally, device=dev))
+    eps = [Endpoint("127.0.0.1", 21000 + i) for i in range(n)]
+
+    async def converged(clusters, size, limit_s=60):
+        deadline = time.perf_counter() + limit_s
+        while time.perf_counter() < deadline:
+            if all(c.membership_size == size for c in clusters) and len(
+                    {(c.service.view.configuration_id, tuple(c.membership)) for c in clusters}) == 1:
+                return True
+            await asyncio.sleep(0.005)
+        return False
+
+    start = time.perf_counter()
+    seed = await Cluster.start(eps[0], rng=random.Random(0), **kw)
+    joiners = await asyncio.gather(*(
+        Cluster.join(eps[0], eps[i], rng=random.Random(i), **kw) for i in range(1, n)))
+    clusters = [seed, *joiners]
+    try:
+        check(await converged(clusters, n), "the cluster did not form")
+        boot_ms = (time.perf_counter() - start) * 1e3
+        msgs0 = sum(c.service.client.stats.msgs_tx for c in clusters)
+        victims = clusters[3::10][:crash]
+        network.blackholed.update(v.listen_address for v in victims)
+        fd.add_failed_nodes([v.listen_address for v in victims])
+        survivors = [c for c in clusters if c not in victims]
+        start = time.perf_counter()
+        check(await converged(survivors, n - crash), "the survivors did not converge")
+        crash_ms = (time.perf_counter() - start) * 1e3
+        kinds = {(type(c.service.cut_detector).__name__,
+                  type(c.service._fast_paxos._vote_tally).__name__) for c in survivors}
+        want = ({("DeviceCutDetector", "DeviceVoteTally")} if adapters
+                else {("MultiNodeCutDetector", "NoneType")})
+        check(kinds == want, f"the nodes ran {kinds}")
+        return {
+            "bootstrap_wall_ms": boot_ms, "crash_to_convergence_wall_ms": crash_ms,
+            "bootstrap_msgs": msgs0,
+            "crash_msgs": sum(c.service.client.stats.msgs_tx for c in clusters) - msgs0,
+            "decision_paths": decided_paths([c.service for c in survivors]),
+            "final_size": survivors[0].membership_size,
+        }
+    finally:
+        await asyncio.gather(*(c.shutdown() for c in clusters), return_exceptions=True)
+
+
+async def host_service_crash(dev, adapters, n):
+    """Phase 20 (c), the service-level crash as
+    ``examples/host_scale_ceiling.py`` builds it: n ``MembershipService``s
+    on one ``InProcessNetwork`` under a ``ManualClock``, one crash."""
+    import asyncio
+    import random
+
+    from rapid_tpu_torch.messaging.inprocess import (
+        InProcessClient, InProcessNetwork, InProcessServer,
+    )
+    from rapid_tpu_torch.monitoring.static_fd import StaticFailureDetectorFactory
+    from rapid_tpu_torch.protocol import (
+        DeviceCutDetector, DeviceVoteTally, MembershipService, MembershipView,
+        MultiNodeCutDetector,
+    )
+    from rapid_tpu_torch.settings import Settings
+    from rapid_tpu_torch.types import Endpoint, NodeId
+    from rapid_tpu_torch.utils.clock import ManualClock
+
+    settings = Settings()
+    endpoints = [Endpoint(f"10.20.{i // 250}.{i % 250}", 6000 + i) for i in range(n)]
+    node_ids = [NodeId(0, i) for i in range(n)]
+    network, clock, fd = InProcessNetwork(), ManualClock(), StaticFailureDetectorFactory()
+    services, servers, tallies = [], [], []
+
+    def tally_factory(size):
+        tallies.append(DeviceVoteTally(size, device=dev))
+        return tallies[-1]
+
+    for i in range(n):
+        view = MembershipView(settings.k, node_ids=node_ids, endpoints=endpoints)
+        client = InProcessClient(network, endpoints[i], settings)
+        detector = (DeviceCutDetector(settings.k, settings.h, settings.l, device=dev) if adapters
+                    else MultiNodeCutDetector(settings.k, settings.h, settings.l))
+        service = MembershipService(
+            my_addr=endpoints[i], cut_detector=detector, view=view, settings=settings,
+            client=client, fd_factory=fd, clock=clock, rng=random.Random(i), node_id=node_ids[i],
+            vote_tally_factory=tally_factory if adapters else None)
+        server = InProcessServer(network, endpoints[i])
+        server.set_membership_service(service)
+        await server.start()
+        await service.start()
+        services.append(service)
+        servers.append(server)
+    victim = endpoints[n // 2]
+    fd.add_failed_nodes([victim])
+    network.blackholed.add(victim)
+    live = [s for s in services if s.my_addr != victim]
+    start, sim_ms = time.perf_counter(), 0
+    while not all(s.membership_size == n - 1 for s in live):
+        clock.advance_ms(50)
+        sim_ms += 50
+        for _ in range(40):
+            await asyncio.sleep(0)
+        check(sim_ms <= 120_000, f"n={n}: no convergence in 120 s of simulated time")
+    wall_ms = (time.perf_counter() - start) * 1e3
+    final = {(s.view.configuration_id, tuple(str(e) for e in s.membership)) for s in live}
+    check(len(final) == 1, "the survivors hold different configurations")
+    out = {"crash_wall_ms": wall_ms, "sim_ms": sim_ms,
+           "msgs": sum(s.client.stats.msgs_tx for s in services),
+           "decision_paths": decided_paths(live), "final": final.pop()}
+    if adapters:
+        out["cut_passes"] = sum(s.cut_detector.batches for s in live)
+        out["tallies"] = sum(t.tallies for t in tallies)
+    for server in servers:
+        await server.shutdown()
+    for service in services:
+        await service.shutdown()
+    return out
+
+
+def phase_host_path(dev, card):
+    """Phase 20. The host membership path launches no delivery kernel: the
+    count is zeroed before it and must read 0 after."""
+    import asyncio
+
+    from rapid_tpu_torch.ops.kernels import delivery_new_bits
+
+    delivery_new_bits.launches = 0
+    report = {"cut_detector": host_cut_detectors(dev), "vote_tally": host_vote_tallies(dev)}
+    clusters = {}
+    for adapters in (True, False):
+        clusters["device" if adapters else "host"] = asyncio.run(asyncio.wait_for(
+            host_cluster_run(dev, adapters), 120))
+    report["clusters"] = clusters
+    services = {}
+    for adapters in (True, False):
+        services["device" if adapters else "host"] = asyncio.run(asyncio.wait_for(
+            host_service_crash(dev, adapters, HOST["services"]), 300))
+    check(services["device"]["final"] == services["host"]["final"],
+          "the N=200 crash ended in another configuration with the device adapters")
+    for side in services.values():
+        cid, members = side.pop("final")
+        side["config_id"], side["final_size"] = cid, len(members)
+    report["services"] = services
+    report["delivery_launches"] = delivery_new_bits.launches
+    check(delivery_new_bits.launches == 0, "the host path launched the delivery kernel")
+    emit({"phase": "host_path", "card": card, **report})
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--parent", metavar="DIR",
@@ -2271,6 +2690,7 @@ def main(argv=None) -> int:
     late_paths.clear()
     observed, ptxas = timed("observability", phase_observability)
     launches.update(observed)
+    timed("host_path", phase_host_path, card)
     emit({"phase": "timing", "seconds": seconds, "total_seconds": time.perf_counter() - start,
           "launch_us_after": launch})
 

@@ -7,7 +7,10 @@ Entry points: :class:`rapid_tpu_torch.models.virtual_cluster.VirtualCluster`
 compact state layout) and :class:`rapid_tpu_torch.tenancy.TenantFleet` (B
 independent clusters per round), the serving tier
 (:mod:`rapid_tpu_torch.serving`) and the engine side of the chaos
-subsystem (:mod:`rapid_tpu_torch.sim`, :mod:`rapid_tpu_torch.tenancy.chaos`).
+subsystem (:mod:`rapid_tpu_torch.sim`, :mod:`rapid_tpu_torch.tenancy.chaos`),
+and the flat host membership path (:class:`rapid_tpu_torch.protocol.Cluster`
+over the in-process and TCP transports, whose cut and vote tallies run on
+the card through ``DeviceCutDetector`` and ``DeviceVoteTally``).
 They run on CUDA unless given ``device="cpu"``. Both drivers are scraped
 through ``health()``, ``telemetry_snapshot()`` and ``prometheus_text()``
 (the JAX package's snapshot and text, :mod:`rapid_tpu_torch.utils`).
@@ -19,6 +22,11 @@ package imports ``torch`` and numpy only.
 import importlib
 
 _EXPORTS = {
+    "Cluster": "rapid_tpu_torch.protocol.cluster",
+    "ClusterEvents": "rapid_tpu_torch.protocol.events",
+    "Endpoint": "rapid_tpu_torch.types",
+    "NodeId": "rapid_tpu_torch.types",
+    "Settings": "rapid_tpu_torch.settings",
     "VirtualCluster": "rapid_tpu_torch.models.virtual_cluster",
     "TenantFleet": "rapid_tpu_torch.tenancy.fleet",
     "NodeHealth": "rapid_tpu_torch.utils.health",

@@ -201,6 +201,8 @@ def alerts_to_report_matrix(n: int, k: int, dst_idx, ring_numbers, device=None) 
     rings = torch.as_tensor(ring_numbers, dtype=torch.int64, device=device).reshape(-1)
     valid = (dst >= 0) & (rings >= 0) & (rings < k)
     flat = torch.where(valid, dst * k + rings, n * k).clamp(max=n * k)
+    # index_fill_ takes the value as a kernel argument: ``out[flat] = True``
+    # would copy a host scalar to the card, which waits for the stream.
     out = torch.zeros((n * k + 1,), dtype=torch.bool, device=dst.device)
-    out[flat] = True
+    out.index_fill_(0, flat, True)
     return out[: n * k].reshape(n, k)

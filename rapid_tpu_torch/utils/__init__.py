@@ -13,6 +13,8 @@ _EXPORTS = {
     "CancelHandle": "clock",
     "Clock": "clock",
     "ManualClock": "clock",
+    "AsyncioClock": "clock",
+    "NodeClock": "clock",
     "EventName": "flight_recorder",
     "FlightEvent": "flight_recorder",
     "FlightRecorder": "flight_recorder",

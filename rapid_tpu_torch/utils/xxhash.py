@@ -2,8 +2,9 @@
 from ``rapid_tpu/utils/xxhash.py``, plus a batch form).
 
 The reference orders its K monitoring rings by a seeded xxHash of each
-endpoint (MembershipView.java:562-587). :func:`xxh64` and :func:`xxh64_int`
-hash one input in plain Python. :func:`xxh64_rows` hashes many equal-length
+endpoint (MembershipView.java:562-587). :func:`xxh64`, :func:`xxh64_int` and
+:func:`xxh64_int4` (the java topology's 4-byte ports) hash one input in plain
+Python; :func:`to_signed64` reads a key or id as a signed long. :func:`xxh64_rows` hashes many equal-length
 inputs at once under many seeds with numpy's wrapping uint64 arithmetic,
 bit for bit the same function: it is what turns the 100,000 endpoints of a
 real cluster into ring keys in well under a second, where the scalar loop
@@ -103,8 +104,22 @@ def xxh64(data: bytes, seed: int = 0) -> int:
 def xxh64_int(value: int, seed: int = 0) -> int:
     """Hash an integer by its little-endian 8-byte encoding (signed or
     unsigned)."""
+    return xxh64(struct.pack("<q", to_signed64(value)), seed)
+
+
+def xxh64_int4(value: int, seed: int = 0) -> int:
+    """Hash an integer by its little-endian 4-byte encoding: the reference's
+    ``LongHashFunction.hashInt`` (a Java ``int`` is 4 bytes), used by the
+    java-compatible topology for port hashing. The native topology hashes
+    ports as 8 bytes (:func:`xxh64_int`)."""
+    return xxh64(struct.pack("<i", value - (1 << 32) if value >= (1 << 31) else value), seed)
+
+
+def to_signed64(value: int) -> int:
+    """An unsigned 64-bit value read as a Java-style signed long (the wire
+    codec's i64, the host path's configuration ids)."""
     value &= _MASK64
-    return xxh64(struct.pack("<q", value - (1 << 64) if value >= (1 << 63) else value), seed)
+    return value - (1 << 64) if value >= (1 << 63) else value
 
 
 # -- the batch form: numpy uint64 lanes, wrapping ------------------------

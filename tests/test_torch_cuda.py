@@ -8,8 +8,10 @@ the wide and the compact layout, an endpoint cluster
 (``VirtualCluster.from_endpoints``), a stream of churn waves through
 the serving driver against the batch drive and the CPU, its path free of
 host reads and synchronizing calls, a chaos fleet, the loss variant's
-gated delivery, a lie injected into a card cluster, and the scrape's
-allocator gauges, build capture and profiler trace.
+gated delivery, a lie injected into a card cluster, the scrape's
+allocator gauges, build capture and profiler trace, and the host membership
+path's two device adapters (card against CPU, no synchronizing call before
+quorum, CUDA by default, a 5-node cluster converging on them).
 Every test needs a CUDA card and ``nvcc``
 and skips without them. On a GPU machine, from the root of a checkout
 (``--noconftest`` because the suite's conftest configures JAX, which the
@@ -420,3 +422,166 @@ def test_profiler_trace_sees_the_delivery_kernel(card, tmp_path):
     assert any(e.get("name") == "churn" for e in events)
     assert any(e.get("cat") == "kernel" and "delivery_new_bits_kernel" in e.get("name", "")
                for e in events)
+
+
+# -- the host membership path's device adapters -------------------------------
+
+
+def _host_view(n, seed, k=10):
+    from rapid_tpu_torch.protocol import MembershipView
+    from rapid_tpu_torch.types import Endpoint, NodeId
+
+    rng = np.random.default_rng(seed)
+    ports = rng.choice(40000, size=n, replace=False) + 1
+    endpoints = [Endpoint(f"10.5.{i % 256}.{i // 256}", int(p)) for i, p in enumerate(ports)]
+    view = MembershipView(k, node_ids=[NodeId(0, i) for i in range(n)], endpoints=endpoints)
+    return view, endpoints
+
+
+def _host_alerts(view, subject, count):
+    from rapid_tpu_torch.types import AlertMessage, EdgeStatus
+
+    observers = view.observers_of(subject)
+    return [AlertMessage(observers[r], subject, EdgeStatus.DOWN, 0, (r,)) for r in range(count)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", range(4))
+def test_device_cut_detector_on_card_matches_cpu(card, seed):
+    from rapid_tpu_torch.protocol import DeviceCutDetector
+
+    view, endpoints = _host_view(60, seed)
+    rng = np.random.default_rng(seed)
+    batches = []
+    for _ in range(6):
+        batch = []
+        for _ in range(rng.integers(1, 4)):
+            subject = endpoints[rng.integers(0, len(endpoints))]
+            batch.extend(_host_alerts(view, subject, int(rng.integers(1, 11))))
+        batches.append(batch)
+    batches.append(_host_alerts(view, endpoints[-1], 10))
+    # After the view change's clear(), a crash of three that must release
+    # (the random batches can leave a subject in flux, which blocks any
+    # release on both devices alike).
+    crash = [a for s in endpoints[:3] for a in _host_alerts(view, s, 10)]
+    outs = []
+    for dev in (card, "cpu"):
+        det = DeviceCutDetector(10, 8, 3, max_slots=256, device=dev)
+        out = [sorted(map(str, det.aggregate_batch(b, view))) for b in batches]
+        det.clear()
+        out.append(sorted(map(str, det.aggregate_batch(crash, view))))
+        outs.append(out + [det.num_proposals, det.batches, det.bytes_uploaded])
+    assert outs[0] == outs[1]
+    assert outs[0][-4] == sorted(map(str, endpoints[:3]))
+
+
+@pytest.mark.cuda
+def test_device_vote_tally_on_card_matches_cpu_and_syncs_only_after_quorum(card):
+    import random
+
+    from rapid_tpu_torch import _host
+    from rapid_tpu_torch.ops.consensus import fast_paxos_quorum
+    from rapid_tpu_torch.protocol import DeviceVoteTally
+    from rapid_tpu_torch.types import Endpoint
+
+    n = 102
+    quorum = fast_paxos_quorum(n)
+    proposals = [(Endpoint("10.9.0.1", 4000 + i),) for i in range(3)]
+    rng = random.Random(3)
+    plan = [rng.choice([0, 0, 0, 0, 0, 0, 1, 2]) for _ in range(n)]
+    outs = []
+    for dev in (card, "cpu"):
+        tally = DeviceVoteTally(n, device=dev)
+        got, reads0 = [], _host.read.count
+        for i, p in enumerate(plan):
+            sender = Endpoint("10.8.0.1", 100 + i)
+            if i < quorum - 1 and dev is card:
+                reads = _host.read.count
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    got.append(tally.add_vote(sender, proposals[p]))
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                assert _host.read.count == reads
+            else:
+                got.append(tally.add_vote(sender, proposals[p]))
+        outs.append((got, tally.tallies, _host.read.count - reads0))
+    assert outs[0] == outs[1]
+    assert outs[0][1] == outs[0][2] == n - quorum + 1
+
+
+@pytest.mark.cuda
+def test_adapters_land_on_the_card_without_a_device(card):
+    from rapid_tpu_torch.protocol import DeviceCutDetector, DeviceVoteTally
+
+    assert DeviceCutDetector(10, 9, 3).device.type == "cuda"
+    tally = DeviceVoteTally(10)
+    assert tally.device.type == "cuda" and tally._vote_hi.device.type == "cuda"
+
+
+@pytest.mark.cuda
+def test_five_node_cluster_with_both_adapters_on_card_converges(card):
+    import asyncio
+    import functools
+    import random
+
+    from rapid_tpu_torch.messaging.inprocess import InProcessNetwork
+    from rapid_tpu_torch.monitoring.static_fd import StaticFailureDetectorFactory
+    from rapid_tpu_torch.protocol import Cluster, DeviceCutDetector, DeviceVoteTally
+    from rapid_tpu_torch.settings import Settings
+    from rapid_tpu_torch.types import Endpoint
+
+    async def scenario():
+        settings = Settings()
+        settings.batching_window_ms = 20
+        settings.failure_detector_interval_ms = 50
+        network, fd = InProcessNetwork(), StaticFailureDetectorFactory()
+        kw = dict(settings=settings, network=network, fd_factory=fd,
+                  cut_detector_factory=functools.partial(DeviceCutDetector, max_slots=64,
+                                                         device=card),
+                  vote_tally_factory=functools.partial(DeviceVoteTally, device=card))
+        eps = [Endpoint("127.0.0.1", 43200 + i) for i in range(5)]
+        clusters = [await Cluster.start(eps[0], rng=random.Random(0), **kw)]
+        for i in range(1, 5):
+            clusters.append(await Cluster.join(eps[0], eps[i], rng=random.Random(i), **kw))
+
+        async def converged(cs, size):
+            for _ in range(600):
+                if all(c.membership_size == size for c in cs) and (
+                        len({tuple(c.membership) for c in cs}) == 1):
+                    return True
+                await asyncio.sleep(0.02)
+            return False
+
+        try:
+            assert await converged(clusters, 5)
+            victim = clusters[3]
+            network.blackholed.add(victim.listen_address)
+            fd.add_failed_nodes([victim.listen_address])
+            survivors = [c for c in clusters if c is not victim]
+            assert await converged(survivors, 4)
+            assert all(c.service.cut_detector.device.type == "cuda" for c in survivors)
+            assert sum(c.service.cut_detector.batches for c in survivors) > 0
+        finally:
+            for c in clusters:
+                await c.shutdown()
+
+    asyncio.run(asyncio.wait_for(scenario(), timeout=60))
+
+
+@pytest.mark.cuda
+def test_report_matrix_makes_no_synchronizing_call(card):
+    # alerts_to_report_matrix fills with index_fill_: ``out[idx] = True``
+    # copied a host scalar to the card, which waits for the stream.
+    from rapid_tpu_torch.ops.cut_detection import alerts_to_report_matrix
+
+    dst = torch.tensor([3, 5, 5, -1], dtype=torch.int32, device=card)
+    rings = torch.tensor([0, 2, 9, 1], dtype=torch.int32, device=card)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = alerts_to_report_matrix(8, 4, dst, rings)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert out.device.type == "cuda"
+    assert torch.equal(out.cpu(), alerts_to_report_matrix(8, 4, dst.cpu(), rings.cpu()))
+    assert out.cpu().nonzero().tolist() == [[3, 0], [5, 2]]

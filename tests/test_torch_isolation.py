@@ -5,7 +5,8 @@
   interpreter, since this test process has both loaded), and neither does
   importing the serving tier alone (``rapid_tpu_torch.serving``) or the
   observability tier alone (``utils``: health, clock, flight recorder,
-  exposition, engine telemetry, profiling).
+  exposition, engine telemetry, profiling), or the host membership path
+  alone (``protocol``, ``messaging``, ``monitoring``).
 - The delivery wrapper raises on inputs its kernel does not take instead of
   quietly taking the plain version.
 """
@@ -86,6 +87,26 @@ def test_observability_tier_imports_no_jax_and_no_rapid_tpu():
         check=True,
     ).stdout.strip()
     assert out == "[]", f"the observability tier loaded: {out}"
+
+
+_HOST_PATH_PROBE = """
+import sys
+import rapid_tpu_torch.protocol, rapid_tpu_torch.messaging, rapid_tpu_torch.monitoring
+from rapid_tpu_torch.protocol import Cluster, DeviceCutDetector, DeviceVoteTally
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "rapid_tpu"))
+print(bad)
+"""
+
+
+def test_host_path_imports_no_jax_and_no_rapid_tpu():
+    # The host membership path (protocol, messaging, monitoring) with its
+    # two device adapters stands alone.
+    out = subprocess.run(
+        [sys.executable, "-c", _HOST_PATH_PROBE], cwd=REPO, capture_output=True, text=True,
+        check=True,
+    ).stdout.strip()
+    assert out == "[]", f"the host path loaded: {out}"
 
 
 def _args(n=64, k=3, c=5):
