@@ -152,7 +152,25 @@ exits non-zero:
    every node on both adapters on the card, 5 crashed, and the same with
    the host's detector and tally; then ``examples/host_scale_ceiling.py``'s
    service-level crash at N=200 with device and with host adapters, to
-   equal final configurations. No delivery kernel is launched.
+   equal final configurations. No delivery kernel is launched;
+21. host_sim: the host chaos harness and the hierarchy. (a) The pinned
+   chaos grid (every family of ``rapid_tpu_torch.sim.fuzz.FAMILIES`` x seeds
+   1-5, the four hierarchical families included) through ``run_schedule``
+   and ``check_all`` with the differential replay on the card: no
+   violation, cuts wherever the schedule asks for a membership change, every
+   replay equal to the same replay on the CPU; the delivery inputs of every
+   replay round captured; scenarios per second, the host run's and the
+   replay's shares, and kernels per replay round from one profiled replay.
+   (b) ``examples/host_scale_ceiling.py``'s service-level crash at N=256
+   with ``hier_target_cohort_size=64`` (4 cohorts) under a ``ManualClock``:
+   ``HierMembershipService`` with a ``DeviceCutDetector`` on the card and
+   with the host detector (to equal configuration ids), and the flat
+   service beside them. (c) 64 nodes through ``Cluster.start`` /
+   ``Cluster.join`` over ``UdpHybridServer`` / ``UdpHybridClient`` on
+   loopback, cohorts of 16, every cut detector on the card, 3 members of
+   one cohort crashed; then ``examples/udp_loss_curve.py``'s measurement on
+   the port (8 nodes; 0, 1, 5, 10 and 20% datagram loss). Then the captured
+   replay rounds go through phase 10's checks and timings.
 
 A kernel's bound (``delivery_bound``) is the larger of its bytes (each
 input once, the output once) over the HBM rate and the delay draws its
@@ -162,8 +180,9 @@ operations of one draw over the int32 issue rate.
 The delivery kernel's launch count is zeroed just before each of the
 paths 4, 5, 8, 12 (churn and 1M), 13, 14, 15 (each stream), 16 (each drill
 with its twin), 17 (the timed fleet), 18 (the three churns) and 19 (each
-scraped path and the profiled churn) and read just after; phase 20 zeroes
-it and must leave it at 0. Then the kernels
+scraped path and the profiled churn) and 21 (a: the grid's ``check_all``
+replays) and read just after; phase 20 and phase 21's (b) and (c) zero it
+and must leave it at 0. Then the kernels
 line (with ptxas's facts), the card's
 name and power limit from ``nvidia-smi``, and as the last line
 ``{"ok": true, "device": {...}}``.
@@ -2530,10 +2549,12 @@ async def host_cluster_run(dev, adapters):
         await asyncio.gather(*(c.shutdown() for c in clusters), return_exceptions=True)
 
 
-async def host_service_crash(dev, adapters, n):
-    """Phase 20 (c), the service-level crash as
-    ``examples/host_scale_ceiling.py`` builds it: n ``MembershipService``s
-    on one ``InProcessNetwork`` under a ``ManualClock``, one crash."""
+async def host_service_crash(dev, adapters, n, cohort=0):
+    """Phase 20 (c) and phase 21 (b), the service-level crash as
+    ``examples/host_scale_ceiling.py`` builds it: n services on one
+    ``InProcessNetwork`` under a ``ManualClock``, one crash. ``cohort`` > 0
+    sets ``hier_target_cohort_size``, so ``Cluster._service_class`` gives
+    ``HierMembershipService`` (which passes no vote tally on)."""
     import asyncio
     import random
 
@@ -2542,14 +2563,15 @@ async def host_service_crash(dev, adapters, n):
     )
     from rapid_tpu_torch.monitoring.static_fd import StaticFailureDetectorFactory
     from rapid_tpu_torch.protocol import (
-        DeviceCutDetector, DeviceVoteTally, MembershipService, MembershipView,
-        MultiNodeCutDetector,
+        Cluster, DeviceCutDetector, DeviceVoteTally, MembershipView, MultiNodeCutDetector,
     )
     from rapid_tpu_torch.settings import Settings
     from rapid_tpu_torch.types import Endpoint, NodeId
     from rapid_tpu_torch.utils.clock import ManualClock
 
     settings = Settings()
+    settings.hier_target_cohort_size = cohort
+    service_class = Cluster._service_class(settings)
     endpoints = [Endpoint(f"10.20.{i // 250}.{i % 250}", 6000 + i) for i in range(n)]
     node_ids = [NodeId(0, i) for i in range(n)]
     network, clock, fd = InProcessNetwork(), ManualClock(), StaticFailureDetectorFactory()
@@ -2564,7 +2586,7 @@ async def host_service_crash(dev, adapters, n):
         client = InProcessClient(network, endpoints[i], settings)
         detector = (DeviceCutDetector(settings.k, settings.h, settings.l, device=dev) if adapters
                     else MultiNodeCutDetector(settings.k, settings.h, settings.l))
-        service = MembershipService(
+        service = service_class(
             my_addr=endpoints[i], cut_detector=detector, view=view, settings=settings,
             client=client, fd_factory=fd, clock=clock, rng=random.Random(i), node_id=node_ids[i],
             vote_tally_factory=tally_factory if adapters else None)
@@ -2578,6 +2600,7 @@ async def host_service_crash(dev, adapters, n):
     fd.add_failed_nodes([victim])
     network.blackholed.add(victim)
     live = [s for s in services if s.my_addr != victim]
+    msgs0 = sum(s.client.stats.msgs_tx for s in services)
     start, sim_ms = time.perf_counter(), 0
     while not all(s.membership_size == n - 1 for s in live):
         clock.advance_ms(50)
@@ -2587,11 +2610,21 @@ async def host_service_crash(dev, adapters, n):
         check(sim_ms <= 120_000, f"n={n}: no convergence in 120 s of simulated time")
     wall_ms = (time.perf_counter() - start) * 1e3
     final = {(s.view.configuration_id, tuple(str(e) for e in s.membership)) for s in live}
-    check(len(final) == 1, "the survivors hold different configurations")
+    check(len(final) == 1, f"n={n}: the survivors hold different configurations")
+    counters = {}
+    for s in live:
+        for key, value in s.metrics.counters.items():
+            if key.startswith("cohort_"):
+                counters[key] = counters.get(key, 0) + value
     out = {"crash_wall_ms": wall_ms, "sim_ms": sim_ms,
-           "msgs": sum(s.client.stats.msgs_tx for s in services),
-           "decision_paths": decided_paths(live), "final": final.pop()}
+           "msgs": sum(s.client.stats.msgs_tx for s in services) - msgs0,
+           "decision_paths": decided_paths(live), "final": final.pop(),
+           "cohort_counters": counters}
+    if cohort:
+        out["cohorts"] = live[0]._cohort_map.n_cohorts
     if adapters:
+        kinds = {type(s.cut_detector).__name__ for s in live}
+        check(kinds == {"DeviceCutDetector"}, f"the services ran {kinds}")
         out["cut_passes"] = sum(s.cut_detector.batches for s in live)
         out["tallies"] = sum(t.tallies for t in tallies)
     for server in servers:
@@ -2628,6 +2661,272 @@ def phase_host_path(dev, card):
     report["delivery_launches"] = delivery_new_bits.launches
     check(delivery_new_bits.launches == 0, "the host path launched the delivery kernel")
     emit({"phase": "host_path", "card": card, **report})
+
+
+HOST_SIM = dict(seeds=(1, 2, 3, 4, 5), services=256, cohort=64, cluster=64, cluster_cohort=16,
+                cluster_crash=3, loss_rates=(0, 1, 5, 10, 20), loss_nodes=8, loss_seed=42)
+
+
+def host_sim_grid(dev, captured):
+    """Phase 21 (a): the pinned chaos grid (every family x ``HOST_SIM["seeds"]``)
+    through the port's ``run_schedule`` and ``check_all`` with the
+    differential replay on ``dev``; ``captured`` receives every delivery
+    call's inputs. Then each replay again on ``dev`` and on the CPU, to
+    equal cuts and final memberships. Returns (report, launches)."""
+    from rapid_tpu_torch.ops.kernels import delivery_new_bits
+    from rapid_tpu_torch.sim.fuzz import FAMILIES, run_schedule, scenario_family
+    from rapid_tpu_torch.sim.oracles import check_all, replay_through_engine
+
+    schedules = [scenario_family(family, seed)
+                 for family in sorted(FAMILIES) for seed in HOST_SIM["seeds"]]
+    results, run_s, check_s, failures = [], 0.0, 0.0, []
+    delivery_new_bits.launches = 0
+    with capturing(captured):
+        for schedule in schedules:
+            begin = time.perf_counter()
+            result = run_schedule(schedule)
+            middle = time.perf_counter()
+            violations = check_all(result, device=dev)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            run_s += middle - begin
+            check_s += time.perf_counter() - middle
+            results.append(result)
+            failures += [f"{schedule.name}: {v}" for v in violations]
+            # Zero cuts is the asserted outcome only where no membership
+            # change is asked for (the stable-band adversarial family).
+            if not result.cuts and schedule.membership_phases():
+                failures.append(f"{schedule.name}: produced no cuts (vacuous run)")
+    launches = delivery_new_bits.launches
+    check(not failures, "the pinned chaos grid failed: " + "; ".join(failures[:5]))
+    check(launches > 0, "the host chaos replays launched no delivery kernel")
+    replayed = 0
+    for result in results:
+        if (not result.final_converged or result.aborted_at_event is not None
+                or not result.schedule.engine_compatible):
+            continue
+        card = replay_through_engine(result.schedule, result.endpoints, device=dev)
+        cpu = replay_through_engine(result.schedule, result.endpoints, device="cpu")
+        check(card == cpu, f"{result.schedule.name}: the card's replay differs from the CPU's")
+        replayed += 1
+    report = {
+        "scenarios": len(schedules), "violations": 0, "replays_held_to_cpu": replayed,
+        "cuts": sum(len(r.cuts) for r in results), "delivery_launches": launches,
+        "scenarios_per_s": len(schedules) / (run_s + check_s),
+        "host_run_s": run_s, "check_all_s": check_s,
+        "host_run_share": run_s / (run_s + check_s), "replay_share": check_s / (run_s + check_s),
+        "replay_rounds_per_scenario": launches / len(schedules),
+    }
+    if dev.type == "cuda":
+        result = next(r for r in results if r.schedule.name.startswith("churn_under_loss"))
+        before = delivery_new_bits.launches
+        _, prof = profile_run(dev, lambda: replay_through_engine(
+            result.schedule, result.endpoints, device=dev))
+        rounds = delivery_new_bits.launches - before
+        report["profiled_replay"] = {"scenario": result.schedule.name, "rounds": rounds,
+                                     "kernels_per_round": prof["device_kernels"] / rounds,
+                                     "host_ops_per_round": prof["host_ops"] / rounds,
+                                     "device_busy_share": prof["device_busy_share"],
+                                     "wall_ms": prof["wall_ms"]}
+    return report, launches
+
+
+def free_ports(count):
+    """Kernel-assigned loopback ports, reserved together then released."""
+    import socket
+
+    socks = []
+    for _ in range(count):
+        sk = socket.socket()
+        sk.bind(("127.0.0.1", 0))
+        socks.append(sk)
+    ports = [sk.getsockname()[1] for sk in socks]
+    for sk in socks:
+        sk.close()
+    return ports
+
+
+async def hier_udp_cluster(dev):
+    """Phase 21 (c): ``HOST_SIM["cluster"]`` nodes through ``Cluster.start``
+    / ``Cluster.join`` over ``UdpHybridServer`` / ``UdpHybridClient`` on
+    loopback, ``hier_target_cohort_size`` = ``HOST_SIM["cluster_cohort"]``,
+    every node's cut detector a ``DeviceCutDetector`` on ``dev``; then
+    ``HOST_SIM["cluster_crash"]`` members of one cohort crash."""
+    import asyncio
+    import random
+
+    from rapid_tpu_torch.messaging.udp import UdpHybridClient, UdpHybridServer
+    from rapid_tpu_torch.monitoring.static_fd import StaticFailureDetectorFactory
+    from rapid_tpu_torch.protocol import Cluster, DeviceCutDetector
+    from rapid_tpu_torch.types import Endpoint
+
+    n, crash = HOST_SIM["cluster"], HOST_SIM["cluster_crash"]
+    settings = host_settings()
+    settings.hier_target_cohort_size = HOST_SIM["cluster_cohort"]
+    fd = StaticFailureDetectorFactory()
+    eps = [Endpoint("127.0.0.1", p) for p in free_ports(n)]
+
+    def kw(i):
+        return dict(settings=settings, client=UdpHybridClient(eps[i], settings),
+                    server=UdpHybridServer(eps[i]),
+                    fd_factory=fd, rng=random.Random(i),
+                    cut_detector_factory=functools.partial(DeviceCutDetector, device=dev))
+
+    async def converged(clusters, size, limit_s=90):
+        deadline = time.perf_counter() + limit_s
+        while time.perf_counter() < deadline:
+            if all(c.membership_size == size for c in clusters) and len(
+                    {(c.service.view.configuration_id, tuple(c.membership)) for c in clusters}) == 1:
+                return True
+            await asyncio.sleep(0.005)
+        return False
+
+    start = time.perf_counter()
+    clusters = [await Cluster.start(eps[0], **kw(0))]
+    try:
+        clusters += await asyncio.gather(*(Cluster.join(eps[0], eps[i], **kw(i))
+                                           for i in range(1, n)))
+        check(await converged(clusters, n), "the hierarchical UDP cluster did not form")
+        boot_ms = (time.perf_counter() - start) * 1e3
+        kinds = {(type(c.service).__name__, type(c.service.cut_detector).__name__)
+                 for c in clusters}
+        check(kinds == {("HierMembershipService", "DeviceCutDetector")}, f"the nodes ran {kinds}")
+        cmap = clusters[0].service._cohort_map
+        cohort = next(c for c in range(cmap.n_cohorts) if eps[0] not in cmap.members_of(c))
+        victims = [c for c in clusters if c.listen_address in cmap.members_of(cohort)][:crash]
+        msgs0 = sum(c.service.client.stats.msgs_tx for c in clusters)
+        start = time.perf_counter()
+        for victim in victims:
+            await victim.shutdown()
+        fd.add_failed_nodes([v.listen_address for v in victims])
+        survivors = [c for c in clusters if c not in victims]
+        check(await converged(survivors, n - crash), "the hierarchical UDP cluster did not converge")
+        crash_ms = (time.perf_counter() - start) * 1e3
+        counters = {}
+        for c in survivors:
+            for key, value in c.service.metrics.counters.items():
+                if key.startswith("cohort_"):
+                    counters[key] = counters.get(key, 0) + value
+        check(counters.get("cohort_global_decisions", 0) > 0, "the global tier decided nothing")
+        return {
+            "cohorts": cmap.n_cohorts, "bootstrap_wall_ms": boot_ms,
+            "crash_to_convergence_wall_ms": crash_ms,
+            "crash_msgs": sum(c.service.client.stats.msgs_tx for c in clusters) - msgs0,
+            "decision_paths": decided_paths([c.service for c in survivors]),
+            "cut_passes": sum(c.service.cut_detector.batches for c in survivors),
+            "cohort_counters": counters, "final_size": survivors[0].membership_size,
+        }
+    finally:
+        await asyncio.gather(*(c.shutdown() for c in clusters), return_exceptions=True)
+
+
+async def udp_loss_point(loss_rate, n_nodes, seed):
+    """``examples/udp_loss_curve.py``'s measurement on the port: a cluster
+    over the hybrid transport with seeded datagram loss at the sender
+    (``LossyDatagramClient``), a join wave of 3, then a crash."""
+    import asyncio
+    import random
+
+    from rapid_tpu_torch.messaging.udp import LossyDatagramClient, UdpHybridServer
+    from rapid_tpu_torch.monitoring.static_fd import StaticFailureDetectorFactory
+    from rapid_tpu_torch.protocol import Cluster
+    from rapid_tpu_torch.settings import Settings
+    from rapid_tpu_torch.types import Endpoint
+
+    settings = Settings()
+    settings.batching_window_ms = 20
+    settings.failure_detector_interval_ms = 50
+    settings.rpc_timeout_ms = 500
+    settings.rpc_join_timeout_ms = 4000
+    settings.rpc_probe_timeout_ms = 200
+    settings.consensus_fallback_base_delay_ms = 1000
+    settings.join_attempts = 10
+    fd = StaticFailureDetectorFactory()
+    rng = random.Random(seed)
+    eps = [Endpoint("127.0.0.1", p) for p in free_ports(n_nodes)]
+    clients = {}
+
+    def kw(i):
+        clients[i] = LossyDatagramClient(eps[i], settings, loss_rate=loss_rate,
+                                         rng=random.Random(rng.randrange(1 << 30)))
+        return dict(settings=settings, client=clients[i], server=UdpHybridServer(eps[i]),
+                    fd_factory=fd, rng=random.Random(seed + i))
+
+    async def converged(size, members):
+        start = time.perf_counter()
+        while not all(c.membership_size == size for c in members):
+            await asyncio.sleep(0.02)
+            check(time.perf_counter() - start <= 120, f"no convergence to {size}")
+        return (time.perf_counter() - start) * 1e3
+
+    n_seed = n_nodes - 3
+    clusters = [await Cluster.start(eps[0], **kw(0))]
+    try:
+        for i in range(1, n_seed):
+            clusters.append(await Cluster.join(eps[0], eps[i], **kw(i)))
+        await converged(n_seed, clusters)
+        start = time.perf_counter()
+        clusters += await asyncio.gather(*(Cluster.join(eps[0], eps[i], **kw(i))
+                                           for i in range(n_seed, n_nodes)))
+        await converged(n_nodes, clusters)
+        join_wave_ms = (time.perf_counter() - start) * 1e3
+        victim = clusters[2]
+        await victim.shutdown()
+        fd.add_failed_nodes([victim.listen_address])
+        survivors = [c for c in clusters if c is not victim]
+        crash_ms = await converged(n_nodes - 1, survivors)
+        return {
+            "loss_pct": loss_rate * 100, "n_nodes": n_nodes, "join_wave_ms": join_wave_ms,
+            "crash_ms": crash_ms,
+            "forced_rejoins": sum(c.service.metrics.counters["decision_missing_joiner_uuid"]
+                                  for c in survivors),
+            "kicked": sum(c.service.metrics.counters["kicked"] for c in survivors),
+            "datagrams_dropped": sum(c.datagrams_dropped for c in clients.values()),
+            "datagrams_delivered": sum(c.datagrams_delivered for c in clients.values()),
+        }
+    finally:
+        await asyncio.gather(*(c.shutdown() for c in clusters), return_exceptions=True)
+
+
+def phase_host_sim(dev, card, captured):
+    """Phase 21. (a) counts the delivery launches of its ``check_all``
+    replays (zeroed just before, read just after) and fills ``captured``
+    with their inputs; (b) and (c) launch none."""
+    import asyncio
+
+    from rapid_tpu_torch.ops.kernels import delivery_new_bits
+
+    seconds = {}
+    begin = time.perf_counter()
+    grid, launches = host_sim_grid(dev, captured)
+    seconds["grid"] = time.perf_counter() - begin
+    begin = time.perf_counter()
+    delivery_new_bits.launches = 0
+    services = {}
+    for mode, adapters, cohort in (("hier_device", True, HOST_SIM["cohort"]),
+                                   ("hier_host", False, HOST_SIM["cohort"]),
+                                   ("flat_host", False, 0)):
+        services[mode] = asyncio.run(asyncio.wait_for(
+            host_service_crash(dev, adapters, HOST_SIM["services"], cohort), 300))
+    check(services["hier_device"]["final"] == services["hier_host"]["final"],
+          f"the N={HOST_SIM['services']} hierarchical crash ended in another configuration "
+          "with the device cut detector")
+    for side in services.values():
+        cid, members = side.pop("final")
+        side["config_id"], side["final_size"] = cid, len(members)
+    seconds["services"] = time.perf_counter() - begin
+    begin = time.perf_counter()
+    cluster = asyncio.run(asyncio.wait_for(hier_udp_cluster(dev), 240))
+    seconds["udp_cluster"] = time.perf_counter() - begin
+    begin = time.perf_counter()
+    loss = [asyncio.run(asyncio.wait_for(udp_loss_point(
+        pct / 100, HOST_SIM["loss_nodes"], HOST_SIM["loss_seed"]), 300))
+        for pct in HOST_SIM["loss_rates"]]
+    seconds["udp_loss_curve"] = time.perf_counter() - begin
+    check(delivery_new_bits.launches == 0, "the host services launched the delivery kernel")
+    emit({"phase": "host_sim", "card": card, "grid": grid, "services": services,
+          "udp_cluster": cluster, "udp_loss_curve": loss, "seconds": seconds})
+    return launches
 
 
 def main(argv=None) -> int:
@@ -2691,6 +2990,11 @@ def main(argv=None) -> int:
     observed, ptxas = timed("observability", phase_observability)
     launches.update(observed)
     timed("host_path", phase_host_path, card)
+    host_sim_rounds = []
+    launches["host_sim"] = timed("host_sim", phase_host_sim, card, host_sim_rounds)
+    captured.update(timed("host_sim_kernel_paths", phase_kernel_paths,
+                          {"host_sim": host_sim_rounds}))
+    del host_sim_rounds
     emit({"phase": "timing", "seconds": seconds, "total_seconds": time.perf_counter() - start,
           "launch_us_after": launch})
 

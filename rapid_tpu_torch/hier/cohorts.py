@@ -1,10 +1,8 @@
-"""Deterministic cohort assignment (port of ``rapid_tpu/hier/cohorts.py``:
-``cohort_key`` and ``CohortMap``; ``CohortTopology`` builds host membership
-views and is not ported).
+"""Deterministic cohort assignment + cohort-scoped monitoring topology.
 
 The cohort map is a pure function of (membership set, seed, target size):
 members are ordered by a seeded 64-bit hash (endpoint tie-break, exactly the
-ring-key discipline of :mod:`rapid_tpu.protocol.view`) and split into
+ring-key discipline of :mod:`rapid_tpu_torch.protocol.view`) and split into
 ``n_cohorts = max(1, (n + target//2) // target)`` contiguous chunks whose
 sizes differ by at most one. Every node computes the identical map from the
 same configuration — no coordination, no extra wire traffic — and the map is
@@ -29,6 +27,7 @@ from __future__ import annotations
 import bisect
 from typing import Dict, Iterable, List, Optional, Tuple
 
+from rapid_tpu_torch.protocol.view import MembershipView
 from rapid_tpu_torch.types import Endpoint
 from rapid_tpu_torch.utils.xxhash import xxh64
 
@@ -148,3 +147,51 @@ class CohortMap:
                 for idx, chunk in enumerate(self._chunks)
             },
         }
+
+
+class CohortTopology:
+    """Cohort-scoped expander monitoring rings over one configuration.
+
+    Each cohort gets its own K-ring :class:`MembershipView` built over just
+    its members (identifier history is irrelevant for ring queries, so the
+    mini-views carry none). ``subjects_of``/``observers_of``/``ring_numbers``
+    then answer within the node's cohort — a cohort-local failure is
+    detected, reported, and aggregated entirely inside the cohort. Built
+    lazily per cohort and only at reconfiguration, alongside the map.
+    """
+
+    __slots__ = ("k", "topology", "_map", "_views")
+
+    def __init__(self, cohort_map: CohortMap, k: int, topology: str) -> None:
+        self.k = k
+        self.topology = topology
+        self._map = cohort_map
+        self._views: Dict[int, MembershipView] = {}
+
+    def view_of(self, cohort: int) -> MembershipView:
+        view = self._views.get(cohort)
+        if view is None:
+            view = MembershipView(
+                self.k,
+                endpoints=self._map.members_of(cohort),
+                topology=self.topology,
+            )
+            self._views[cohort] = view
+        return view
+
+    def _cohort_view(self, endpoint: Endpoint) -> MembershipView:
+        return self.view_of(self._map.cohort_of(endpoint))
+
+    # -- the monitoring-topology SPI the service consults ----------------
+
+    def subjects_of(self, node: Endpoint) -> List[Endpoint]:
+        return self._cohort_view(node).subjects_of(node)
+
+    def observers_of(self, node: Endpoint) -> List[Endpoint]:
+        return self._cohort_view(node).observers_of(node)
+
+    def expected_observers_of(self, joiner: Endpoint) -> List[Endpoint]:
+        return self._cohort_view(joiner).expected_observers_of(joiner)
+
+    def ring_numbers(self, observer: Endpoint, subject: Endpoint) -> List[int]:
+        return self._cohort_view(subject).ring_numbers(observer, subject)

@@ -1,7 +1,7 @@
 """The host transports (copies of ``rapid_tpu/messaging``): the messaging
 SPI and broadcaster, the wire codec, the in-process network with its fault
-tools, and TCP. The UDP hybrid and the gossip broadcaster are not ported yet
-(ROADMAP, the host-stack queue)."""
+tools, TCP, and the UDP hybrid. The gossip broadcaster is
+:mod:`rapid_tpu_torch.messaging.gossip`."""
 
 from rapid_tpu_torch.messaging.base import (
     Broadcaster,
@@ -18,6 +18,7 @@ from rapid_tpu_torch.messaging.inprocess import (
 )
 from rapid_tpu_torch.messaging.retries import call_with_retries
 from rapid_tpu_torch.messaging.tcp import TcpClient, TcpServer
+from rapid_tpu_torch.messaging.udp import UdpHybridClient, UdpHybridServer
 
 __all__ = [
     "Broadcaster",
@@ -32,4 +33,6 @@ __all__ = [
     "call_with_retries",
     "TcpClient",
     "TcpServer",
+    "UdpHybridClient",
+    "UdpHybridServer",
 ]

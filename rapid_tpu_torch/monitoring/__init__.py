@@ -1,6 +1,6 @@
 """Edge failure detectors of the host path (copies of
-``rapid_tpu/monitoring``): the SPI, ping-pong and the static detector. The
-windowed detector is not ported yet (ROADMAP, the host-stack queue)."""
+``rapid_tpu/monitoring``): the SPI, ping-pong, the static detector and the
+windowed detector."""
 
 from rapid_tpu_torch.monitoring.base import (
     EdgeFailureDetector,
@@ -12,6 +12,10 @@ from rapid_tpu_torch.monitoring.ping_pong import (
     PingPongFailureDetectorFactory,
 )
 from rapid_tpu_torch.monitoring.static_fd import StaticFailureDetector, StaticFailureDetectorFactory
+from rapid_tpu_torch.monitoring.windowed import (
+    WindowedFailureDetector,
+    WindowedFailureDetectorFactory,
+)
 
 __all__ = [
     "EdgeFailureDetector",
@@ -21,4 +25,6 @@ __all__ = [
     "PingPongFailureDetectorFactory",
     "StaticFailureDetector",
     "StaticFailureDetectorFactory",
+    "WindowedFailureDetector",
+    "WindowedFailureDetectorFactory",
 ]

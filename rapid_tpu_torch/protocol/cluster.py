@@ -1,5 +1,4 @@
-"""Public cluster API: bootstrap a seed or join through one (a copy of
-``rapid_tpu/protocol/cluster.py``, flat service only).
+"""Public cluster API: bootstrap a seed or join through one.
 
 API surface mirrors the reference ``Cluster`` builder
 (``Cluster.java:53-160``): ``start()`` boots a single-node cluster,
@@ -157,11 +156,10 @@ class Cluster:
         service at the server seam (gossip unwrap/relay)."""
         settings = settings if settings is not None else Settings()
         settings.validate()
-        cls._service_class(settings)
         client, server = cls._make_transport(listen_address, settings, network, client, server)
         fd_factory = fd_factory or PingPongFailureDetectorFactory(listen_address, client)
         # An injected identity makes a simulated run a pure function of its
-        # seed (rapid_tpu/sim); production callers omit it and get a UUID.
+        # seed (rapid_tpu_torch/sim); production callers omit it and get a UUID.
         node_id = node_id if node_id is not None else NodeId.from_uuid()
         view = MembershipView(
             settings.k,
@@ -197,18 +195,12 @@ class Cluster:
 
     @staticmethod
     def _service_class(settings: Settings):
-        """The service class for this configuration. The port has the flat
-        service only: a two-level configuration raises instead of quietly
-        running flat. ``start`` and ``join`` ask before they make a
-        transport or talk to a seed."""
+        """Flat or two-level service, by configuration. Imported lazily:
+        the hier package depends on protocol/, not the other way around."""
         if settings.hier_target_cohort_size > 0:
-            raise NotImplementedError(
-                f"hier_target_cohort_size={settings.hier_target_cohort_size} asks for "
-                "the hierarchical service (rapid_tpu/hier/service.py), which "
-                "rapid_tpu_torch does not have yet: it comes with hier/broadcast.py "
-                "and hier/service.py in ROADMAP.md's host-stack queue (Queue 1, "
-                "item 16). Set hier_target_cohort_size=0 for the flat service."
-            )
+            from rapid_tpu_torch.hier.service import HierMembershipService
+
+            return HierMembershipService
         return MembershipService
 
     @staticmethod
@@ -243,7 +235,6 @@ class Cluster:
         (Cluster.java:303-344)."""
         settings = settings if settings is not None else Settings()
         settings.validate()
-        cls._service_class(settings)
         client, server = cls._make_transport(listen_address, settings, network, client, server)
         fd_factory = fd_factory or PingPongFailureDetectorFactory(listen_address, client)
         # Injected identity: see start(). The UUID_ALREADY_IN_RING retry

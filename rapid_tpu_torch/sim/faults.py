@@ -1,34 +1,95 @@
-"""Declarative, serializable fault schedules (port of
-``rapid_tpu/sim/faults.py``).
+"""Declarative, serializable fault schedules over the in-process seams.
 
-A :class:`FaultSchedule` is an ordered list of :class:`FaultEvent` records,
-JSON-serializable, validated and *slot-indexed* (slots are indices into the
-scenario's endpoint table, the same indexing the device engine uses). The
-JSON form is the JAX package's, byte for byte, so a schedule or a repro
-written by either package loads in the other.
+A :class:`FaultSchedule` is an ordered list of :class:`FaultEvent` records —
+JSON-serializable, validated, and *slot-indexed* (slots are indices into the
+scenario's endpoint table, the same indexing the device engine uses), so one
+schedule drives both the asyncio stack and the device engine. Every source
+of nondeterminism is seeded: the statistical link faults draw from one
+``random.Random(seed)``, clock faults act on per-node
+:class:`~rapid_tpu_torch.utils.clock.NodeClock` wrappers over the scenario's one
+``ManualClock``, and the runner applies events in schedule order — a whole
+run is a pure function of the schedule.
 
-What the port does with a schedule:
+Event vocabulary (reference seams in parentheses):
 
-- the fleet chaos compiler (:mod:`rapid_tpu_torch.tenancy.chaos`) and the
-  engine replay of the differential oracle
-  (:func:`rapid_tpu_torch.sim.oracles.replay_through_engine`) compile its
-  :meth:`FaultSchedule.membership_phases` onto engine clusters;
-- the streaming pipeline turns its crash/join events into stream waves
-  (:func:`~rapid_tpu_torch.serving.stream.waves_from_schedule`);
-- :func:`loss_as_engine_delivery` maps symmetric loss onto the engine's
-  delivery knobs.
+==================  ========================================================
+kind                 semantics
+==================  ========================================================
+``crash``            crash-stop the slots: blackholed + failure detectors
+                     observe it (``StaticFailureDetector`` blacklist — the
+                     reference's fault fixture, StaticFailureDetector.java)
+``restart``          a previously removed slot rejoins at the same endpoint
+                     with a fresh identity (UUID re-use is rejected by the
+                     protocol, so a restart is a new incarnation)
+``join``             admit fresh slots through the seed (a join wave)
+``leave``            one slot departs gracefully (LeaveMessage path)
+``partition_oneway`` all ingress INTO the victim drops; it still sends.
+                     Observers lose probe responses, so detection fires
+                     (the reference's asymmetric-failure scenarios)
+``partition``        symmetric isolation of the slot set: links both ways
+                     drop, detection does NOT fire (a pure network fault
+                     below the detection threshold). The isolated members
+                     can neither hear nor be heard — if they gatekeep a
+                     concurrent cut, detection can wedge below H until the
+                     heal; if never healed, they go stale forever. This is
+                     the canonical oracle-violating shape the shrinker
+                     regression pins.
+``ingress_block``    one-way isolation of each slot in the set: all links
+                     INTO it drop, its egress stays open, detection does
+                     NOT fire. Its alerts/votes still reach the cluster and
+                     its config pulls ride request/response THROUGH the
+                     partition (the catch-up shape of the chaos soak)
+``heal_partitions``  clear every link-level block
+``link_block``       one directional link drops (``blackholed_links`` seam)
+``link_heal``        re-open one directional link
+``loss``             seeded symmetric message loss, permille, all links
+``delay``            seeded per-message delivery delay, uniform in
+                     [min_ms, max_ms] of simulated time
+``duplicate``        seeded per-message duplication, permille (the server
+                     handles the request twice — receiver-side dedup)
+``drop_first_n``     drop the first N requests of one type at a slot's
+                     server (MessageDropInterceptor.java:24-49 semantics)
+``wan_asym``         WAN-shaped asymmetry: messages crossing the boundary
+                     between ``slots`` and the rest suffer ADDITIONAL
+                     seeded loss (``loss_permille``) and delay
+                     (``delay_min_ms``..``delay_max_ms``) on top of any
+                     global shaping; intra-group links are untouched (the
+                     inter-cohort adverse-network shape of the
+                     hierarchical-membership families). Empty slots +
+                     zero parameters clears it.
+``clock_skew``       shift one slot's clock readings by offset_ms
+``clock_pause``      freeze one slot's clock and park its timers (GC pause)
+``clock_resume``     thaw a paused clock; parked timers fire late
+``false_alert``      a Byzantine observer (``slots[0]``) broadcasts edge
+                     reports it never observed about a healthy ``subject``:
+                     one alert claiming the given ``rings``. DOWN claims
+                     accumulate in every receiver's H/L cut detector; the
+                     paper's stability claim is that a cumulative count held
+                     in [L, H) DELAYS (never triggers) a view change, while
+                     a count pushed past H evicts the healthy subject — but
+                     the eviction must still be one agreed, chain-consistent
+                     cut. UP claims about a present host are filtered by
+                     every receiver (a no-op lie, kept for coverage).
+``alert_storm``      K-1-style collusion: every slot in ``slots`` lies
+                     simultaneously about ``subject``, the claimed ``rings``
+                     distributed round-robin across the liars. Cumulative
+                     ring semantics identical to ``false_alert`` (receivers
+                     dedup per (subject, ring), so colluders re-claiming
+                     the same rings add nothing).
+``committee_crash``  arm a tripwire that crash-stops ``slots[0]`` (a
+                     hierarchical global-committee member) the instant the
+                     first ``CohortCutMessage`` hits any server — i.e.
+                     BETWEEN cohort-cut forwarding and the global decision,
+                     the hier reconfiguration window (the committee-crash
+                     shape of arXiv:1906.01365). Hier-profile only; must be
+                     ``settle=False`` (it overlaps the membership event
+                     whose reconfiguration trips it).
+==================  ========================================================
 
-The host runner and its link shaper (``LinkPlan`` / ``LinkShaper`` in the
-JAX package) drive the asyncio stack, which the port does not have.
-
-The event vocabulary and its semantics are the JAX package's (see its
-module docstring): membership kinds (``crash``, ``restart``, ``join``,
-``leave``, ``partition_oneway``), environment kinds (partitions, link
-blocks, loss, delay, duplication, ``drop_first_n``, ``wan_asym``, clock
-faults) and adversarial kinds (``false_alert``, ``alert_storm``,
-``committee_crash``). ``dwell_ms`` on every event is how much simulated
-time the host runner advances after applying it; ``settle=False`` overlaps
-a membership event with the next one.
+``dwell_ms`` on every event is how much simulated time the runner advances
+after applying it; membership-changing events additionally convergence-wait
+(unless ``settle=False``, which overlaps them with the next event — the
+crash-during-join shape).
 """
 
 from __future__ import annotations
@@ -36,9 +97,17 @@ from __future__ import annotations
 import json
 import random
 from dataclasses import dataclass, field
-from typing import Dict, List, Tuple
+from typing import Dict, List, NamedTuple, Tuple
 
 from rapid_tpu_torch.settings import Settings
+from rapid_tpu_torch.types import (
+    BatchedAlertMessage,
+    FastRoundPhase2bMessage,
+    JoinMessage,
+    PreJoinMessage,
+    ProbeMessage,
+)
+from rapid_tpu_torch.utils.clock import Clock
 
 #: The protocol watermarks adversarial schedules are judged against — the
 #: reference defaults every sim profile boots with (Settings(); the engine
@@ -56,11 +125,14 @@ WATERMARK_L = _DEFAULTS.l
 #: drop_first_n message-type vocabulary: the serializable names a schedule
 #: may target (mirrors the reference interceptor fixtures' targeted types).
 #: Lives with the schedule model so validate() can reject a typo'd name
-#: instead of letting the runner KeyError mid-scenario. Names only: the
-#: message classes they map to in the JAX package belong to the host stack.
-DROPPABLE_MESSAGES = frozenset({
-    "prejoin", "join", "probe", "batched_alert", "fast_round_vote",
-})
+#: instead of letting the runner KeyError mid-scenario.
+DROPPABLE_MESSAGES = {
+    "prejoin": PreJoinMessage,
+    "join": JoinMessage,
+    "probe": ProbeMessage,
+    "batched_alert": BatchedAlertMessage,
+    "fast_round_vote": FastRoundPhase2bMessage,
+}
 
 #: Events that change the expected membership (and are therefore replayable
 #: through the device engine by the differential oracle).
@@ -85,6 +157,79 @@ ADVERSARIAL_KINDS = frozenset({"false_alert", "alert_storm", "committee_crash"})
 ALL_KINDS = MEMBERSHIP_KINDS | ENVIRONMENT_KINDS | ADVERSARIAL_KINDS
 
 
+class LinkPlan(NamedTuple):
+    """One message's fate under the shaper."""
+
+    drop: bool
+    delay_ms: float
+    duplicate: bool
+
+
+class LinkShaper:
+    """Seeded statistical link faults, consulted per in-process send attempt
+    (the ``InProcessNetwork.shaper`` seam).
+
+    One ``random.Random`` drives every draw, so given a fixed schedule of
+    protocol operations the sequence of drops/delays/duplications is a pure
+    function of the seed. Delays hold the message for *simulated* time (the
+    scenario's ManualClock), so a delayed message interleaves exactly where
+    the schedule says it does, independent of host speed.
+    """
+
+    def __init__(self, rng: random.Random, clock: Clock) -> None:
+        self._rng = rng
+        self._clock = clock
+        self.loss_permille = 0
+        self.delay_min_ms = 0.0
+        self.delay_max_ms = 0.0
+        self.dup_permille = 0
+        # WAN asymmetry (the ``wan_asym`` event): links CROSSING the
+        # boundary between ``asym_group`` and everyone else pay additional
+        # loss/delay; intra-group links are untouched.
+        self.asym_group: set = set()
+        self.asym_loss_permille = 0
+        self.asym_delay_min_ms = 0.0
+        self.asym_delay_max_ms = 0.0
+        # Observability: totals per fate, for artifacts and assertions.
+        self.dropped = 0
+        self.delayed = 0
+        self.duplicated = 0
+        self.asym_dropped = 0
+        self.asym_delayed = 0
+
+    def plan(self, src, dst) -> LinkPlan:
+        drop = self.loss_permille > 0 and self._rng.randrange(1000) < self.loss_permille
+        if drop:
+            self.dropped += 1
+            return LinkPlan(True, 0.0, False)
+        cross = bool(self.asym_group) and (
+            (src in self.asym_group) != (dst in self.asym_group)
+        )
+        if (
+            cross
+            and self.asym_loss_permille > 0
+            and self._rng.randrange(1000) < self.asym_loss_permille
+        ):
+            self.dropped += 1
+            self.asym_dropped += 1
+            return LinkPlan(True, 0.0, False)
+        delay = 0.0
+        if self.delay_max_ms > 0:
+            delay = self._rng.uniform(self.delay_min_ms, self.delay_max_ms)
+        if cross and self.asym_delay_max_ms > 0:
+            delay += self._rng.uniform(self.asym_delay_min_ms, self.asym_delay_max_ms)
+            self.asym_delayed += 1
+        if delay > 0:
+            self.delayed += 1
+        dup = self.dup_permille > 0 and self._rng.randrange(1000) < self.dup_permille
+        if dup:
+            self.duplicated += 1
+        return LinkPlan(False, delay, dup)
+
+    async def hold_ms(self, delay_ms: float) -> None:
+        await self._clock.sleep_ms(delay_ms)
+
+
 class ScheduleError(ValueError):
     """The schedule is ill-formed (unknown kind, slot-lifecycle violation,
     seed-node fault, ...). Raised by :meth:`FaultSchedule.validate`, and at
@@ -100,11 +245,11 @@ class FaultEvent:
     membership event with the next one instead of convergence-waiting.
 
     Construction with an unregistered ``kind`` raises immediately: the
-    vocabulary (ALL_KINDS), the fuzz FAMILIES table, and the chaosrun CLI
-    all index on these strings, and a typo'd kind must fail at the point it
-    is minted — never ride silently into a schedule file the runner then
-    crashes on mid-scenario (the chaosvocab lint family pins the static
-    half of this)."""
+    vocabulary (ALL_KINDS), the fuzz FAMILIES table, and the JAX package's
+    chaosrun CLI all index on these strings, and a typo'd kind must fail at
+    the point it is minted — never ride silently into a schedule file the
+    runner then crashes on mid-scenario (the chaosvocab lint family pins
+    the static half of this)."""
 
     kind: str
     slots: Tuple[int, ...] = ()
@@ -166,7 +311,7 @@ class FaultSchedule:
     name: str = ""
     #: Protocol profile the runner boots the cluster with: "flat" (the
     #: classic O(N) protocol) or "hier" (two-level hierarchical membership,
-    #: rapid_tpu/hier — the WAN-shaped families run under it).
+    #: rapid_tpu_torch/hier — the WAN-shaped families run under it).
     profile: str = "flat"
 
     # -- serialization (the repro artifact format) ----------------------

@@ -1,32 +1,41 @@
-"""Schedule-space search: named families, seeded generation, shrinking
-(port of ``rapid_tpu/sim/fuzz.py``).
+"""Schedule-space search: seeded generation, named families, shrinking.
 
-- **Named scenario families**: the four canonical adverse-network shapes
+Three pieces:
+
+- **Named scenario families** — the four canonical adverse-network shapes
   (partition-heal, asymmetric link, crash-during-join, churn-under-loss),
-  the ADVERSARIAL shapes (false-alert stability, watermark probe:
-  Byzantine observers lying against the H/L watermarks) and the WAN-shaped
-  hierarchical-membership shapes (``profile="hier"``), each a seeded
-  generator over a fixed slot geometry, so every (family, seed) pair is one
-  pinned, replayable scenario. The fleet chaos compiler
-  (:mod:`rapid_tpu_torch.tenancy.chaos`) compiles them onto engine tenants.
-- **Random schedules**: :func:`random_schedule` draws arbitrary mixes of
+  the ADVERSARIAL shapes (false-alert stability, watermark probe — Byzantine
+  observers lying against the H/L watermarks, scenarios the paper's
+  honest-but-flaky evaluation never reached), and the WAN-shaped
+  hierarchical-membership shapes (inter-cohort loss/latency asymmetry,
+  delegate gray failure, cohort-boundary flapping, committee crash during
+  reconfiguration — ``profile="hier"``, run over the two-level protocol of
+  :mod:`rapid_tpu_torch.hier`), each a seeded generator over a fixed slot
+  geometry so every (family, seed) pair is one pinned, replayable scenario.
+  The tier-1 chaos smoke runs a pinned grid of these; ``tools/chaosrun.py``
+  runs them by name over the JAX package only (the port has no CLI).
+- **Random schedules** — :func:`random_schedule` draws arbitrary mixes of
   membership phases and environment faults, sized to keep the cluster
-  decidable.
-- **Shrinking**: :func:`_shrink_candidates` yields the reductions a greedy
-  shrinker tries, in decreasing aggressiveness; the fleet shrinker
-  (``tenancy.chaos.shrink_tenant``) walks them.
-
-Every generator is the JAX package's: the same seed gives the same schedule,
-byte for byte in its JSON form. The host runner, ``shrink``, ``replay`` and
-``fuzz`` drive the asyncio stack and are not ported.
+  decidable (slot 0 never faulted, enough reachable voters for a classic
+  majority, partitions always healed) so a violation means the PROTOCOL
+  broke, not the scenario.
+- **The shrinker** — :func:`shrink` greedily minimizes an oracle-violating
+  schedule: drop events, shrink fault sets, zero dwell times — accepting a
+  reduction only if the original violation (same oracle set) still fires.
+  The result is the smallest repro the greedy pass can reach, which is what
+  gets written to disk and attached to the bug.
 
 All geometry is shared (``N0``/``N_SLOTS``), so every scenario's engine
-cluster has one shape and a fleet of them stacks.
+cluster has one shape and a fleet of them stacks. Whatever runs the
+differential replay (:func:`replay`, :func:`fuzz`) takes a trailing
+``device`` (CUDA unless it names another); :func:`shrink` runs without it.
 """
+
 from __future__ import annotations
 
 import random
-from typing import Callable, Dict, Iterable, List, Optional
+from pathlib import Path
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 from rapid_tpu_torch.hier.cohorts import CohortMap
 from rapid_tpu_torch.sim.faults import (
@@ -36,7 +45,13 @@ from rapid_tpu_torch.sim.faults import (
     FaultSchedule,
     ScheduleError,
 )
-from rapid_tpu_torch.sim.scenario import endpoints_for, hier_sim_settings
+from rapid_tpu_torch.sim.oracles import Violation, check_all
+from rapid_tpu_torch.sim.scenario import (
+    RunResult,
+    ScenarioRunner,
+    endpoints_for,
+    hier_sim_settings,
+)
 
 #: One slot geometry for every generated scenario: 8 initial members, a
 #: 4-slot joiner pool. Small enough that a full run is cheap, large enough
@@ -194,7 +209,7 @@ def watermark_probe(seed: int) -> FaultSchedule:
 
 
 # ---------------------------------------------------------------------------
-# WAN-shaped hierarchical families (rapid_tpu/hier; profile="hier")
+# WAN-shaped hierarchical families (rapid_tpu_torch/hier; profile="hier")
 # ---------------------------------------------------------------------------
 
 
@@ -475,8 +490,16 @@ def random_schedule(seed: int, phases: Optional[int] = None) -> FaultSchedule:
 
 
 # ---------------------------------------------------------------------------
-# shrinking
+# running, shrinking, replaying
 # ---------------------------------------------------------------------------
+
+
+def run_schedule(schedule: FaultSchedule) -> RunResult:
+    return ScenarioRunner(schedule).run()
+
+
+def _violation_names(violations: Iterable[Violation]) -> frozenset:
+    return frozenset(v.oracle for v in violations)
 
 
 def _shrink_candidates(schedule: FaultSchedule) -> Iterable[FaultSchedule]:
@@ -510,3 +533,107 @@ def _shrink_candidates(schedule: FaultSchedule) -> Iterable[FaultSchedule]:
                 event.kind, event.slots, dict(event.args), 0.0, event.settle
             )
             yield rebuilt(events[:i] + [reduced] + events[i + 1:])
+
+
+def shrink(
+    schedule: FaultSchedule,
+    violations: List[Violation],
+    max_runs: int = 80,
+) -> Tuple[FaultSchedule, List[Violation], int]:
+    """Greedily minimize an oracle-violating schedule: accept any reduction
+    under which every oracle of the ORIGINAL violation set still fires.
+    The differential oracle is excluded from the preserved set — the loop
+    re-runs candidates without the (expensive) engine replay, so it could
+    never observe a differential violation and would otherwise reject every
+    reduction; callers re-verify the final repro with the full battery.
+    Returns (minimal schedule, its violations, runs spent)."""
+    target = _violation_names(violations) - {"differential"}
+    if not target:
+        if _violation_names(violations):
+            raise ValueError(
+                "cannot shrink a differential-only violation: the shrink "
+                "loop runs without the engine replay"
+            )
+        raise ValueError("nothing to shrink: the schedule passed its oracles")
+    current, current_violations = schedule, violations
+    runs = 0
+    improved = True
+    while improved and runs < max_runs:
+        improved = False
+        for candidate in _shrink_candidates(current):
+            if runs >= max_runs:
+                break
+            try:
+                candidate.validate()
+            except ScheduleError:
+                continue
+            result = run_schedule(candidate)
+            runs += 1
+            got = check_all(result, differential=False)
+            if target <= _violation_names(got):
+                current, current_violations = candidate, got
+                improved = True
+                break
+    return current, current_violations, runs
+
+
+def write_repro(
+    result: RunResult,
+    violations: List[Violation],
+    directory,
+) -> Path:
+    """The full repro artifact: the run's schedule and captures, plus the
+    violations it proves."""
+    directory = Path(result.write_repro(directory))
+    (directory / "violations.txt").write_text(
+        "".join(f"{v}\n" for v in violations) or "(none)\n"
+    )
+    return directory
+
+
+def replay(directory, device=None) -> Tuple[RunResult, List[Violation]]:
+    """Re-run a written repro: loads ``schedule.json`` and replays it (same
+    seed, same draws, same simulated clock) through the full oracle
+    battery. Deterministic: the violations reproduce exactly."""
+    schedule = FaultSchedule.from_json(
+        (Path(directory) / "schedule.json").read_text()
+    )
+    result = run_schedule(schedule)
+    return result, check_all(result, device=device)
+
+
+def fuzz(
+    seeds: Iterable[int],
+    out_dir=None,
+    shrink_failures: bool = True,
+    device=None,
+) -> List[dict]:
+    """Run random schedules over ``seeds``; on any oracle violation, shrink
+    to a minimal repro and (when ``out_dir`` is given) write it to
+    ``<out_dir>/seed<N>/``. Returns one summary dict per seed."""
+    summaries = []
+    for seed in seeds:
+        schedule = random_schedule(seed)
+        result = run_schedule(schedule)
+        violations = check_all(result, device=device)
+        summary: dict = {
+            "seed": seed,
+            "events": len(schedule.events),
+            "violations": [str(v) for v in violations],
+        }
+        if violations and shrink_failures:
+            minimal, _, runs = shrink(schedule, violations)
+            summary["shrunk_events"] = len(minimal.events)
+            summary["shrink_runs"] = runs
+            if out_dir is not None:
+                repro_dir = Path(out_dir) / f"seed{seed}"
+                # Re-verify the minimal schedule with the FULL battery
+                # (shrink ran without the differential replay): the repro's
+                # recorded violations must be exactly what a replay sees,
+                # or `replay` (or the JAX package's `chaosrun replay`) would flag
+                # its own artifact.
+                min_result = run_schedule(minimal)
+                write_repro(min_result, check_all(min_result, device=device), repro_dir)
+                summary["repro"] = str(repro_dir)
+        summaries.append(summary)
+    return summaries

@@ -11,7 +11,11 @@ host reads and synchronizing calls, a chaos fleet, the loss variant's
 gated delivery, a lie injected into a card cluster, the scrape's
 allocator gauges, build capture and profiler trace, and the host membership
 path's two device adapters (card against CPU, no synchronizing call before
-quorum, CUDA by default, a 5-node cluster converging on them).
+quorum, CUDA by default, a 5-node cluster converging on them), and the
+host chaos harness's engine replay on the card (``check_all`` on a flat
+and a hierarchical family, equal to the CPU's replay; its delivery calls
+free of synchronizing calls) with a 2-cohort hierarchical service whose
+card cut detector decides what the host detector decides.
 Every test needs a CUDA card and ``nvcc``
 and skips without them. On a GPU machine, from the root of a checkout
 (``--noconftest`` because the suite's conftest configures JAX, which the
@@ -585,3 +589,64 @@ def test_report_matrix_makes_no_synchronizing_call(card):
     assert out.device.type == "cuda"
     assert torch.equal(out.cpu(), alerts_to_report_matrix(8, 4, dst.cpu(), rings.cpu()))
     assert out.cpu().nonzero().tolist() == [[3, 0], [5, 2]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["churn_under_loss", "delegate_gray_failure"])
+def test_check_all_replays_on_card_as_on_cpu(card, family):
+    # A flat and a hierarchical family: the host run's oracles with the
+    # engine replay on the card, and the replay itself card against CPU.
+    from rapid_tpu_torch.sim.fuzz import run_schedule, scenario_family
+    from rapid_tpu_torch.sim.oracles import check_all, replay_through_engine
+
+    result = run_schedule(scenario_family(family, 1))
+    before = delivery_new_bits.launches
+    assert check_all(result, device=card) == [] == check_all(result, device="cpu")
+    assert delivery_new_bits.launches > before
+    assert replay_through_engine(result.schedule, result.endpoints, device=card) == (
+        replay_through_engine(result.schedule, result.endpoints, device="cpu"))
+
+
+@pytest.mark.cuda
+def test_two_cohort_service_with_card_detector_decides_as_host(card):
+    import asyncio
+
+    from chip_smoke import host_service_crash
+
+    runs = {adapters: asyncio.run(asyncio.wait_for(host_service_crash(card, adapters, 8, 4), 120))
+            for adapters in (True, False)}
+    assert runs[True]["cohorts"] == 2 and runs[True]["cut_passes"] > 0
+    for key in ("final", "msgs", "sim_ms", "cohort_counters", "decision_paths"):
+        assert runs[True][key] == runs[False][key], key
+
+
+@pytest.mark.cuda
+def test_replay_delivery_calls_make_no_synchronizing_call(card):
+    # The delivery call inside the engine replay (``_deliver_alerts``)
+    # launches without synchronizing, as it does on the stream path.
+    from rapid_tpu_torch.models import virtual_cluster
+    from rapid_tpu_torch.sim.fuzz import scenario_family
+    from rapid_tpu_torch.sim.oracles import replay_through_engine
+
+    real, calls = virtual_cluster.delivery_new_bits, []
+
+    def checked(*args):
+        torch.cuda.synchronize(card)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = real(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        calls.append(out.shape)
+        return out
+
+    schedule = scenario_family("crash_during_join", 2)
+    virtual_cluster.delivery_new_bits = checked
+    try:
+        from rapid_tpu_torch.sim.scenario import endpoints_for
+
+        replay_through_engine(schedule, endpoints_for(schedule.seed, schedule.n_slots),
+                              device=card)
+    finally:
+        virtual_cluster.delivery_new_bits = real
+    assert calls

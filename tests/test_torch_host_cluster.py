@@ -10,7 +10,9 @@
 - ``Cluster`` scenarios of ``tests/test_cluster.py`` through the port.
 - The README's Quick start through the port over loopback TCP, and mixed
   clusters where a port node joins a JAX seed and the reverse.
-- A hierarchical configuration raises a named error, never a flat service.
+- A hierarchical configuration builds the hierarchical service through
+  ``Cluster.start`` and ``Cluster.join``; the service itself refuses a flat
+  configuration with JAX's named error.
 """
 
 import asyncio
@@ -62,7 +64,7 @@ def _run(coro, timeout=90):
 
 
 @contextlib.contextmanager
-def _one_torch_thread():
+def one_torch_thread():
     """The adapters' CPU ops are tiny. On a loaded host torch's intra-op
     pool, whose threads spin while they wait, makes each op wait for cores:
     one N=50 crash with the adapters took 68 s on 8 threads and 1.4 s on
@@ -157,7 +159,7 @@ async def _service_crash(pkg, n, crashes, device, seed=0):
 def service_runs():
     """Every (package, adapters, crash size) run once, shared by the tests."""
     runs = {}
-    with _one_torch_thread():
+    with one_torch_thread():
         for name, pkg in (("jax", JAX), ("port", PORT)):
             for device in (False, True):
                 for crashes in (1, 5):
@@ -335,7 +337,7 @@ async def _scenario(name):
     "sixteen_of_fifty_classic_fallback", "graceful_leave", "kicked_node", "metadata_propagates",
 ])
 def test_cluster_scenario(name):
-    with _one_torch_thread():
+    with one_torch_thread():
         _run(_scenario(name), timeout=180)
 
 
@@ -397,19 +399,38 @@ def test_mixed_cluster_over_tcp(seed_pkg):
 # -- the hierarchical configuration -------------------------------------------
 
 
-def test_hierarchical_configuration_raises_a_named_error():
+def test_hierarchical_configuration_builds_the_hier_service():
+    from rapid_tpu.hier import service as j_hier
+    from rapid_tpu_torch.hier import HierMembershipService
+
     async def main():
         settings = _fast_settings()
         settings.hier_target_cohort_size = 8
         network = t_inproc.InProcessNetwork()
-        with pytest.raises(NotImplementedError, match="host-stack queue"):
-            await Cluster.start(_ep(0), settings=settings, network=network,
-                                fd_factory=t_static.StaticFailureDetectorFactory())
-        # A join asks before it makes a transport or talks to the seed.
-        with pytest.raises(NotImplementedError, match="hierarchical service"):
-            await Cluster.join(_ep(0), _ep(1), settings=settings, network=network,
-                               fd_factory=t_static.StaticFailureDetectorFactory())
-        assert network.servers == {}
+        fd = t_static.StaticFailureDetectorFactory()
+        seed = await Cluster.start(_ep(0), settings=settings, network=network, fd_factory=fd)
+        joiner = await Cluster.join(_ep(0), _ep(1), settings=settings, network=network,
+                                    fd_factory=fd)
+        try:
+            assert type(seed.service) is HierMembershipService
+            assert type(joiner.service) is HierMembershipService
+            assert await wait_until(lambda: joiner.membership_size == 2)
+        finally:
+            await _shutdown([seed, joiner])
+        assert Cluster._service_class(settings) is HierMembershipService
         assert Cluster._service_class(_fast_settings()) is MembershipService
+        # The hierarchical service refuses a flat configuration by name.
+        errors = []
+        for pkg, cls in ((JAX, j_hier.HierMembershipService), (PORT, HierMembershipService)):
+            flat = pkg["settings"].Settings()
+            endpoint = pkg["t"].Endpoint("10.1.1.1", 1)
+            view = pkg["view"].MembershipView(flat.k, node_ids=[pkg["t"].NodeId(1, 1)],
+                                              endpoints=[endpoint])
+            with pytest.raises(ValueError) as err:
+                cls(my_addr=endpoint, cut_detector=pkg["cut"].MultiNodeCutDetector(
+                    flat.k, flat.h, flat.l), view=view, settings=flat, client=None,
+                    fd_factory=None)
+            errors.append(str(err.value))
+        assert errors[0] == errors[1] and "hier_target_cohort_size > 0" in errors[1]
 
     _run(main(), timeout=30)

@@ -6,7 +6,9 @@
   importing the serving tier alone (``rapid_tpu_torch.serving``) or the
   observability tier alone (``utils``: health, clock, flight recorder,
   exposition, engine telemetry, profiling), or the host membership path
-  alone (``protocol``, ``messaging``, ``monitoring``).
+  alone (``protocol``, ``messaging``, ``monitoring``), or the hierarchical
+  service, the UDP and gossip transports, the windowed detector and the
+  host chaos harness alone (``hier``, ``sim``).
 - The delivery wrapper raises on inputs its kernel does not take instead of
   quietly taking the plain version.
 """
@@ -107,6 +109,33 @@ def test_host_path_imports_no_jax_and_no_rapid_tpu():
         check=True,
     ).stdout.strip()
     assert out == "[]", f"the host path loaded: {out}"
+
+
+_HIER_SIM_PROBE = """
+import sys
+import rapid_tpu_torch.hier, rapid_tpu_torch.sim
+from rapid_tpu_torch.hier import CohortTopology, CohortBroadcaster, HierMembershipService
+from rapid_tpu_torch.messaging.gossip import GossipBroadcaster, GossipRouter
+from rapid_tpu_torch.messaging.udp import LossyDatagramClient, UdpHybridClient, UdpHybridServer
+from rapid_tpu_torch.monitoring.windowed import WindowedFailureDetectorFactory
+from rapid_tpu_torch.sim import LinkShaper, RunResult, ScenarioRunner, SimHarness
+from rapid_tpu_torch.sim.fuzz import fuzz, replay, run_schedule, shrink
+from rapid_tpu_torch.sim.oracles import check_all
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "rapid_tpu"))
+print(bad)
+"""
+
+
+def test_hier_and_host_sim_import_no_jax_and_no_rapid_tpu():
+    # The hierarchical service, UDP, gossip, the windowed detector and the
+    # host chaos harness (runner, oracles with the engine replay, fuzzer)
+    # stand alone.
+    out = subprocess.run(
+        [sys.executable, "-c", _HIER_SIM_PROBE], cwd=REPO, capture_output=True, text=True,
+        check=True,
+    ).stdout.strip()
+    assert out == "[]", f"the hierarchy or the host chaos harness loaded: {out}"
 
 
 def _args(n=64, k=3, c=5):

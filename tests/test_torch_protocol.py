@@ -2,11 +2,15 @@
 
 - The plain copies (errors, types, clock, metadata, events, the cut
   detector, Paxos and Fast Paxos, the service, the cluster, the transports
-  and the failure detectors) have the JAX modules' code: their syntax trees
-  are equal once docstrings are dropped and the package name is read as
-  one. The port's own departures are named where they are made: Fast Paxos
-  takes its quorum rule from ``ops/consensus.py``, and ``Cluster`` refuses
-  a hierarchical configuration.
+  with UDP and gossip, the failure detectors with the windowed one, the
+  hierarchical service, and the chaos runner, faults, oracles and fuzzer)
+  have the JAX modules' code: their syntax trees are equal once docstrings
+  are dropped and the package name is read as one. The port's own
+  departures are named where they are made: Fast Paxos takes its quorum
+  rule from ``ops/consensus.py``; the chaos modules take a trailing
+  ``device`` wherever they reach the engine replay; and the engine half of
+  the oracles reads the card through the port's own calls (held by
+  ``tests/test_torch_chaos.py`` and ``tests/test_torch_host_sim.py``).
 - Types, ``NodeId`` round-trips, ``MembershipView`` (both topologies, the
   java golden fixtures) and the wire codec (bytes equal for every message
   and response type, and each package decoding the other's frames).
@@ -75,10 +79,36 @@ _COPIES = [
     "protocol/metadata.py", "protocol/events.py", "protocol/cut_detector.py",
     "protocol/paxos.py", "protocol/fast_paxos.py", "protocol/service.py",
     "protocol/cluster.py",
-    "messaging/base.py", "messaging/codec.py", "messaging/inprocess.py",
-    "messaging/retries.py", "messaging/stats.py", "messaging/tcp.py",
-    "monitoring/base.py", "monitoring/ping_pong.py", "monitoring/static_fd.py",
+    "messaging/__init__.py", "messaging/base.py", "messaging/codec.py",
+    "messaging/inprocess.py", "messaging/retries.py", "messaging/stats.py",
+    "messaging/tcp.py", "messaging/udp.py", "messaging/gossip.py",
+    "monitoring/__init__.py", "monitoring/base.py", "monitoring/ping_pong.py",
+    "monitoring/static_fd.py", "monitoring/windowed.py",
+    "hier/__init__.py", "hier/cohorts.py", "hier/broadcast.py", "hier/service.py",
+    "sim/__init__.py", "sim/faults.py", "sim/scenario.py", "sim/oracles.py", "sim/fuzz.py",
 ]
+
+#: The engine half of the oracles: the port reads the card through its own
+#: calls (``_host.read``, ``alive_mask``), so these are held by behaviour.
+_ENGINE_ORACLES = {"inject_engine_event", "replay_through_engine", "check_differential"}
+
+
+class _NoDevice(ast.NodeTransformer):
+    """Takes out a ``device`` parameter and every ``device`` argument: the
+    port's chaos modules thread one to the engine replay."""
+
+    def visit_arguments(self, node):
+        keep = [i for i, a in enumerate(node.args) if a.arg != "device"]
+        cut = len(node.args) - len(node.defaults)
+        node.defaults = [d for i, d in enumerate(node.defaults) if cut + i in keep]
+        node.args = [node.args[i] for i in keep]
+        return node
+
+    def visit_Call(self, node):
+        self.generic_visit(node)
+        node.args = [a for a in node.args if not (isinstance(a, ast.Name) and a.id == "device")]
+        node.keywords = [k for k in node.keywords if k.arg != "device"]
+        return node
 
 
 def _is_docstring(node):
@@ -104,13 +134,13 @@ def _normalized(path: Path, package: str, rel: str) -> str:
         tree.body = _drop(tree.body, lambda n: (
             isinstance(n, ast.FunctionDef) and n.name == "fast_paxos_quorum"
             or isinstance(n, ast.ImportFrom) and n.module.endswith("ops.consensus")))
-    if rel == "protocol/cluster.py":
-        # The port's service class is flat only, asked before any transport.
-        for node in ast.walk(tree):
-            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
-                node.body = _drop(node.body, lambda n: (
-                    isinstance(n, ast.FunctionDef) and n.name == "_service_class"
-                    or isinstance(n, ast.Expr) and "_service_class" in ast.unparse(n)))
+    if rel.startswith("sim/"):
+        tree = _NoDevice().visit(tree)
+    if rel == "sim/oracles.py":
+        tree.body = _drop(tree.body, lambda n: (
+            isinstance(n, ast.FunctionDef) and n.name in _ENGINE_ORACLES
+            or isinstance(n, ast.Import) and [a.name for a in n.names] == ["numpy"]
+            or isinstance(n, ast.ImportFrom) and [a.name for a in n.names] == ["_host"]))
     if rel == "settings.py":
         # The port's settings own the topology names (no host view to ask).
         tree.body = _drop(tree.body, lambda n: isinstance(n, ast.Assign) and any(

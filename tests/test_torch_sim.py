@@ -177,7 +177,11 @@ def test_settings_and_watermarks_are_jax():
     assert dataclasses.asdict(scenario.hier_sim_settings()) == dataclasses.asdict(
         jscenario.hier_sim_settings())
     assert scenario.HIER_SIM_COHORT_SIZE == jscenario.HIER_SIM_COHORT_SIZE
-    assert faults.DROPPABLE_MESSAGES == set(jfaults.DROPPABLE_MESSAGES)
+    # Name -> message class, each the port's own type of JAX's name.
+    assert {name: cls.__name__ for name, cls in faults.DROPPABLE_MESSAGES.items()} == {
+        name: cls.__name__ for name, cls in jfaults.DROPPABLE_MESSAGES.items()}
+    assert all(cls.__module__ == "rapid_tpu_torch.types"
+               for cls in faults.DROPPABLE_MESSAGES.values())
     assert (faults.MEMBERSHIP_KINDS, faults.ENVIRONMENT_KINDS, faults.ADVERSARIAL_KINDS) == (
         jfaults.MEMBERSHIP_KINDS, jfaults.ENVIRONMENT_KINDS, jfaults.ADVERSARIAL_KINDS)
     assert faults.MEMBER_DELTA == jfaults.MEMBER_DELTA
