@@ -7,7 +7,8 @@ Phases, each printing one JSON line; any failure raises and the script
 exits non-zero:
 
 1. build: compile every ``rapid_tpu_torch/csrc/*.cu`` (one ``nvcc`` each,
-   started together) and report the build time and ptxas's register report;
+   started together) and report the build time and ptxas's register report,
+   then the native host library (``g++``; phase 22 (a));
 2. kernel: the delivery kernel against its plain PyTorch version on the
    card, bit for bit, at the headline shape (64 cohorts, K=10, n=102,500) in
    all three delay modes and at ragged small shapes (the generic-K instance
@@ -172,6 +173,25 @@ exits non-zero:
    the port (8 nodes; 0, 1, 5, 10 and 20% datagram loss). Then the captured
    replay rounds go through phase 10's checks and timings.
 
+22. config_resume: a cluster resumed from a saved ``Configuration`` at
+   the churn's geometry (102,500 endpoints of phase 14's
+   ``endpoint_list``). (a) The native host library (``g++`` of
+   ``csrc/rapid_native.cpp``, built at the start of the run, before phase
+   14, so that phase 14's ring keys take it): its compiler, wall ms and
+   path; the run fails there when it does not build or load. (b) A native
+   ``Configuration`` of the first 100,000 endpoints with seeded
+   ``NodeId``s, saved and loaded (bytes, write and read ms, equal
+   contents), and a 2,048-member java one round-tripped as version 2.
+   (c) Its configuration id through the native library and the Python
+   fold, equal, ms each. (d) The ring keys of all 102,500 endpoints at
+   K=10 natively and through numpy, equal, ms each. (e) The host view
+   rebuilt from the loaded configuration (ms), each ring equal to the
+   engine's ``ring_perm`` restricted to member slots. (f) That engine,
+   ``VirtualCluster.from_endpoints`` of the loaded members and 2,500
+   joiners on the card, through phase 14's churn (2,500 crashes, 2,500
+   joins) to the right member set; every round's delivery inputs
+   captured, then through phase 10's checks and timings.
+
 A kernel's bound (``delivery_bound``) is the larger of its bytes (each
 input once, the output once) over the HBM rate and the delay draws its
 inputs need (unblocked edges with ``0 <= age < spread``) times the
@@ -181,8 +201,8 @@ The delivery kernel's launch count is zeroed just before each of the
 paths 4, 5, 8, 12 (churn and 1M), 13, 14, 15 (each stream), 16 (each drill
 with its twin), 17 (the timed fleet), 18 (the three churns) and 19 (each
 scraped path and the profiled churn) and 21 (a: the grid's ``check_all``
-replays) and read just after; phase 20 and phase 21's (b) and (c) zero it
-and must leave it at 0. Then the kernels
+replays) and 22 (f) and read just after; phase 20 and phase 21's (b) and
+(c) zero it and must leave it at 0. Then the kernels
 line (with ptxas's facts), the card's
 name and power limit from ``nvidia-smi``, and as the last line
 ``{"ok": true, "device": {...}}``.
@@ -195,9 +215,11 @@ import contextlib
 import functools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -2929,6 +2951,170 @@ def phase_host_sim(dev, card, captured):
     return launches
 
 
+# -- phase 22: a cluster resumed from a Configuration -------------------------
+
+RESUME = dict(members=HEADLINE["n"], java=2_048, node_id_seed=22)
+
+
+def native_build():
+    """The native host library, built before the phases that hash
+    endpoints (``utils/_native.ensure_built``): g++'s version, the wall ms
+    and the library's path. Fails when it does not build or load."""
+    from rapid_tpu_torch import _build
+    from rapid_tpu_torch.utils import _native
+
+    start = time.perf_counter()
+    built = _native.ensure_built()
+    ms = (time.perf_counter() - start) * 1e3
+    check(built, f"the native host library did not build: {_build.build_log.get('rapid_native')}")
+    _native._attempted = False  # load the fresh build
+    check(_native.get_lib() is not None, f"the native host library does not load: {_native._LIB_PATH}")
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True, check=True)
+    return {"gxx": gxx.stdout.splitlines()[0], "build_ms": ms, "path": str(_native._LIB_PATH)}
+
+
+@contextlib.contextmanager
+def without_native():
+    """The host path's Python and numpy fallbacks, as with no native
+    library (``get_lib()`` returns None inside)."""
+    from rapid_tpu_torch.utils import _native
+
+    saved = _native._lib, _native._attempted
+    _native._lib, _native._attempted = None, True
+    try:
+        yield
+    finally:
+        _native._lib, _native._attempted = saved
+
+
+def seeded_node_ids(count, seed):
+    from rapid_tpu_torch.types import NodeId
+
+    words = np.random.default_rng(seed).integers(0, 2**64, size=(count, 2), dtype=np.uint64)
+    return [NodeId(int(hi), int(lo)) for hi, lo in words.tolist()]
+
+
+def same_configuration(a, b):
+    return (a.node_ids == b.node_ids and a.endpoints == b.endpoints and a.topology == b.topology)
+
+
+def phase_config_resume(dev, native, captured):
+    """Phase 22. ``native``: :func:`native_build`'s record; ``captured``: a
+    list that receives the delivery inputs of every round of the resumed
+    churn. Returns its delivery launches."""
+    from rapid_tpu_torch import _host
+    from rapid_tpu_torch.ops.kernels import delivery_new_bits
+    from rapid_tpu_torch.ops.rings import endpoint_ring_keys
+    from rapid_tpu_torch.protocol.view import (
+        TOPOLOGY_JAVA, TOPOLOGY_NATIVE, Configuration, MembershipView, configuration_id_of,
+        node_id_sort_key,
+    )
+    from rapid_tpu_torch.utils import _native
+    from rapid_tpu_torch.utils.checkpoint import (
+        configuration_to_bytes, load_configuration, save_configuration, view_from_configuration,
+    )
+
+    k, n, n_join, n_crash = HEADLINE["k"], RESUME["members"], HEADLINE["n_join"], HEADLINE["n_crash"]
+    check(_native.get_lib() is not None, "the native host library is not loaded")
+    report = {"native": native}
+    endpoints = endpoint_list(n + n_join)
+    node_ids = seeded_node_ids(n, RESUME["node_id_seed"])
+
+    # (b) The Configuration file: the identifiers in the native order and
+    # the members in ring 0's (key) order, as a view would write it; (e)
+    # checks both through the resumed view's configuration id.
+    start = time.perf_counter()
+    ring0 = _native.native_ring_keys_batch(
+        [ep.hostname.encode("utf-8") for ep in endpoints[:n]], [ep.port for ep in endpoints[:n]], 1)[0]
+    check(len(np.unique(ring0)) == n, "two members share a ring-0 key")
+    config = Configuration(sorted(node_ids, key=lambda nid: node_id_sort_key(nid, TOPOLOGY_NATIVE)),
+                           [endpoints[i] for i in np.argsort(ring0, kind="stable")])
+    config_ms = (time.perf_counter() - start) * 1e3
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "config.rtcf")
+        start = time.perf_counter()
+        save_configuration(path, config)
+        write_ms = (time.perf_counter() - start) * 1e3
+        start = time.perf_counter()
+        loaded = load_configuration(path)
+        read_ms = (time.perf_counter() - start) * 1e3
+        file_bytes = os.path.getsize(path)
+        check(same_configuration(loaded, config), "the loaded configuration differs from the saved one")
+        java = MembershipView(k, node_ids=node_ids[:RESUME["java"]],
+                              endpoints=endpoints[:RESUME["java"]], topology=TOPOLOGY_JAVA).configuration
+        java_path = os.path.join(tmp, "java.rtcf")
+        save_configuration(java_path, java)
+        check(configuration_to_bytes(java)[4] == 2, "a java configuration is not written as version 2")
+        check(configuration_to_bytes(config)[4] == 1, "a native configuration is not written as version 1")
+        java_loaded = load_configuration(java_path)
+        check(same_configuration(java_loaded, java) and java_loaded.topology == TOPOLOGY_JAVA,
+              "the java configuration did not round-trip")
+    report["file"] = {"members": n, "bytes": file_bytes, "config_ms": config_ms,
+                      "write_ms": write_ms, "read_ms": read_ms,
+                      "java": {"members": RESUME["java"], "version": 2}}
+
+    # (c) The configuration id.
+    args = (loaded.node_ids, loaded.endpoints)
+    start = time.perf_counter()
+    native_id = configuration_id_of(*args)
+    native_id_ms = (time.perf_counter() - start) * 1e3
+    with without_native():
+        start = time.perf_counter()
+        python_id = configuration_id_of(*args)
+        python_id_ms = (time.perf_counter() - start) * 1e3
+    check(native_id == python_id == config.configuration_id,
+          f"configuration ids differ: native {native_id}, Python {python_id}")
+    report["configuration_id"] = {"equal": True, "native_ms": native_id_ms, "python_ms": python_id_ms}
+
+    # (d) The ring keys.
+    resumed = list(loaded.endpoints) + endpoints[n:]
+    start = time.perf_counter()
+    native_keys = endpoint_ring_keys(resumed, k)
+    native_keys_ms = (time.perf_counter() - start) * 1e3
+    with without_native():
+        start = time.perf_counter()
+        numpy_keys = endpoint_ring_keys(resumed, k)
+        numpy_keys_ms = (time.perf_counter() - start) * 1e3
+    check(all(np.array_equal(a, b) for a, b in zip(native_keys, numpy_keys)),
+          "native and numpy ring keys differ")
+    report["ring_keys"] = {"endpoints": len(resumed), "k": k, "equal": True,
+                           "native_ms": native_keys_ms, "numpy_ms": numpy_keys_ms}
+
+    # (e) The host view, against the engine's rings; (f) the engine's churn.
+    start = time.perf_counter()
+    view = view_from_configuration(loaded, k)
+    resume_view_ms = (time.perf_counter() - start) * 1e3
+    check(view.configuration_id == config.configuration_id, "the resumed view has another configuration id")
+    start = time.perf_counter()
+    vc, victims = endpoint_churn(resumed, n, n_join, n_crash, dev)
+    torch.cuda.synchronize(dev)
+    engine_build_ms = (time.perf_counter() - start) * 1e3
+    perm = np.asarray(_host.read(vc.state.ring_perm))
+    for r in range(k):
+        slots = perm[r][perm[r] < n]
+        check([resumed[i] for i in slots] == view.ring(r), f"the view's ring {r} is not the engine's")
+    report["view"] = {"ms": resume_view_ms, "rings_equal_ring_perm": k}
+    delivery_new_bits.launches = 0
+    torch.cuda.synchronize(dev)
+    start = time.perf_counter()
+    with capturing(captured):
+        rounds, cuts, resolved, sizes = resolve(vc, n)
+    torch.cuda.synchronize(dev)
+    ms = (time.perf_counter() - start) * 1e3
+    launches = delivery_new_bits.launches
+    check(resolved and vc.membership_size == n, f"resumed churn unresolved: {cuts} cuts, {sizes}")
+    alive = vc.alive_mask
+    got = {resumed[i] for i in np.nonzero(alive)[0]}
+    want = (set(loaded.endpoints) - {resumed[i] for i in victims}) | set(endpoints[n:])
+    check(got == want, "the resumed churn ended with the wrong members")
+    check(launches > 0, "the resumed churn never launched the delivery kernel")
+    report["churn"] = {"build_ms": engine_build_ms, "ms": ms, "rounds": rounds, "cuts": cuts,
+                       "sizes": list(sizes), "members_right": True, "kernel_launches": launches,
+                       "captured_rounds": len(captured)}
+    emit({"phase": "config_resume", **report})
+    return launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--parent", metavar="DIR",
@@ -2945,8 +3131,10 @@ def main(argv=None) -> int:
     _build.build_all()
     ptxas = [ln.strip() for log in _build.build_log.values() for ln in log.splitlines()
              if "registers" in ln or "spill" in ln]
+    native = native_build()
     emit({"phase": "build", "seconds": time.perf_counter() - start, "sources": _build.sources(),
-          "ptxas": ptxas, "card": card, "torch": torch.__version__, "cuda": torch.version.cuda})
+          "ptxas": ptxas, "native": native, "card": card, "torch": torch.__version__,
+          "cuda": torch.version.cuda})
 
     seconds, launch = {}, {"start": launch_us(dev)}
 
@@ -2995,6 +3183,11 @@ def main(argv=None) -> int:
     captured.update(timed("host_sim_kernel_paths", phase_kernel_paths,
                           {"host_sim": host_sim_rounds}))
     del host_sim_rounds
+    resume_rounds = []
+    launches["config_resume"] = timed("config_resume", phase_config_resume, native, resume_rounds)
+    captured.update(timed("config_resume_kernel_paths", phase_kernel_paths,
+                          {"config_resume": resume_rounds}))
+    del resume_rounds
     emit({"phase": "timing", "seconds": seconds, "total_seconds": time.perf_counter() - start,
           "launch_us_after": launch})
 

@@ -10,13 +10,18 @@ independent clusters per round), the serving tier
 subsystem (:mod:`rapid_tpu_torch.sim`, :mod:`rapid_tpu_torch.tenancy.chaos`),
 and the flat host membership path (:class:`rapid_tpu_torch.protocol.Cluster`
 over the in-process and TCP transports, whose cut and vote tallies run on
-the card through ``DeviceCutDetector`` and ``DeviceVoteTally``).
+the card through ``DeviceCutDetector`` and ``DeviceVoteTally``), with
+the host view's ``Configuration`` checkpoints
+(:mod:`rapid_tpu_torch.utils.checkpoint`), the native host library
+(:mod:`rapid_tpu_torch.utils._native`, ``csrc/rapid_native.cpp``) and the
+reference-wire interop (:mod:`rapid_tpu_torch.interop`, protobuf and gRPC).
 They run on CUDA unless given ``device="cpu"``. Both drivers are scraped
 through ``health()``, ``telemetry_snapshot()`` and ``prometheus_text()``
 (the JAX package's snapshot and text, :mod:`rapid_tpu_torch.utils`).
 uint32 lanes are stored as int32 bit patterns (:mod:`rapid_tpu_torch._u32`),
 uint16 lanes as int16 bit patterns (:mod:`rapid_tpu_torch._narrow`). The
-package imports ``torch`` and numpy only.
+package imports ``torch`` and numpy only, but for the interop, which
+imports ``protobuf`` (and ``grpc`` for its transport) when it is used.
 """
 
 import importlib

@@ -1,4 +1,5 @@
-"""Builds the CUDA sources under ``csrc/`` at first use.
+"""Builds the sources under ``csrc/``: the CUDA kernels at first use, the
+native host library when asked.
 
 Each ``csrc/<name>.cu`` exposes a plain C entry point and is compiled by
 ``nvcc`` into ``build/lib<name>-<hash>.so`` inside this package (a directory
@@ -13,6 +14,12 @@ already built, a miss otherwise) and every build with its wall time is
 reported to ``utils/engine_telemetry``'s collector.
 
 There is no fallback: without ``nvcc``, or when it fails, the build raises.
+
+``csrc/<name>.cpp`` is host code (``rapid_native.cpp``, the native host
+runtime of ``utils/_native.py``): :func:`build_host` compiles it with
+``g++`` into ``build/lib<name>-<hash>.so`` by the same naming rule. Its
+caller falls back to Python when it fails, so it returns the error text
+instead of raising; the text is kept in :data:`build_log`.
 """
 
 from __future__ import annotations
@@ -33,12 +40,15 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
+#: ``native/Makefile``'s flags.
+GXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-Wall", "-Wextra")
 
 _lock = threading.Lock()
 _loaded: dict = {}
 #: Kernel names looked up in this process (each one a hit or a miss once).
 _requested: set = set()
-#: name -> nvcc's stderr (ptxas register / spill report) of the last build.
+#: name -> the compiler's stderr of the last build (for a kernel, ptxas's
+#: register / spill report).
 build_log: dict = {}
 
 
@@ -58,10 +68,15 @@ def sources() -> list:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
-def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+def _target(name: str, suffix: str = ".cu", flags=NVCC_FLAGS) -> Path:
+    src = (CSRC / f"{name}{suffix}").read_bytes()
+    digest = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD / f"lib{name}-{digest}.so"
+
+
+def host_target(name: str) -> Path:
+    """Where the build of ``csrc/<name>.cpp`` is (or will be) kept."""
+    return _target(name, ".cpp", GXX_FLAGS)
 
 
 def report_path(name: str) -> Path:
@@ -121,3 +136,29 @@ def load(name: str) -> ctypes.CDLL:
         with _lock:
             lib = _loaded.setdefault(name, ctypes.CDLL(str(_target(name))))
     return lib
+
+
+def build_host(name: str) -> str:
+    """Compile ``csrc/<name>.cpp`` with ``g++`` unless it is built. Returns
+    '' on success, else the error text (also kept in ``build_log[name]``).
+    The output goes through a temporary file and a rename, so processes
+    that build at once leave one whole library."""
+    out = host_target(name)
+    with _lock:
+        if out.exists():
+            return ""
+        BUILD.mkdir(exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = ["g++", *GXX_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cpp")]
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True, timeout=120)
+        except (OSError, subprocess.TimeoutExpired) as exc:
+            tmp.unlink(missing_ok=True)
+            build_log[name] = f"g++ could not build csrc/{name}.cpp: {exc!r}"
+            return build_log[name]
+        build_log[name] = proc.stderr
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            return f"g++ failed on csrc/{name}.cpp:\n{proc.stdout}{proc.stderr}"
+        os.replace(tmp, out)
+        return ""

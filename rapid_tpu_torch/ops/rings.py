@@ -46,7 +46,10 @@ def endpoint_ring_keys(endpoints: Sequence, k: int, topology: str = "native"):
     """Host side: the K seeded 64-bit ring keys of every endpoint (any
     object with ``.hostname`` and ``.port``), as numpy uint32 ``(hi, lo)``
     arrays ``[K, N]``, equal to :func:`ring_key` per endpoint and ring.
-    Hashed in batches of equal hostname length (``xxh64_rows``).
+    The native library (``utils/_native.py``), when built, hashes the whole
+    batch, as in the JAX package; otherwise numpy hashes it in batches of
+    equal hostname length (``xxh64_rows``), bit-identical. Unlike JAX's,
+    the lanes come back as numpy arrays.
 
     Native topology only: the device's unsigned 64-bit keyspace cannot hold
     the java-compatible signed ring order, so anything else raises."""
@@ -55,9 +58,21 @@ def endpoint_ring_keys(endpoints: Sequence, k: int, topology: str = "native"):
             f"the device/engine path requires the native topology; got {topology!r} "
             "(java-compat ring order is host-path only)"
         )
-    seeds = np.arange(k, dtype=np.uint64)
+    from rapid_tpu_torch.utils._native import native_ring_keys_batch
+
     hosts = [ep.hostname.encode("utf-8") for ep in endpoints]
-    ports = np.array([ep.port for ep in endpoints], dtype=np.int64)
+    ports = [ep.port for ep in endpoints]
+    keys = native_ring_keys_batch(hosts, ports, k)
+    if keys is None:
+        keys = _ring_keys_numpy(hosts, ports, k)
+    return (keys >> np.uint64(32)).astype(np.uint32), (keys & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+
+
+def _ring_keys_numpy(hosts, ports, k: int) -> np.ndarray:
+    """``[K, N]`` uint64 ring keys of the encoded hostnames and ports,
+    hashed by numpy in batches of equal hostname length."""
+    seeds = np.arange(k, dtype=np.uint64)
+    ports = np.array(ports, dtype=np.int64)
     keys = xxh64_rows(ports.astype("<i8").view(np.uint8).reshape(-1, 8), seeds)
     lengths = np.array([len(h) for h in hosts], dtype=np.int64)
     with np.errstate(over="ignore"):
@@ -66,7 +81,7 @@ def endpoint_ring_keys(endpoints: Sequence, k: int, topology: str = "native"):
             blob = np.frombuffer(b"".join(hosts[i] for i in rows), dtype=np.uint8)
             host_keys = xxh64_rows(blob.reshape(len(rows), int(length)), seeds)
             keys[:, rows] += host_keys * np.uint64(31)
-    return (keys >> np.uint64(32)).astype(np.uint32), (keys & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    return keys
 
 
 def _key64(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:

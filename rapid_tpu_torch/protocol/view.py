@@ -22,8 +22,6 @@ from __future__ import annotations
 import bisect
 from typing import Dict, List, Optional, Sequence, Set, Tuple
 
-import numpy as np
-
 from rapid_tpu_torch.errors import (
     NodeAlreadyInRingError,
     NodeNotInRingError,
@@ -97,6 +95,17 @@ def configuration_id_of(
     i64): every host-path config-id comparison uses this signed canonical
     form. (The device engine's config identity is a separate unsigned
     set-hash space, never compared against this fold.)"""
+    if topology != TOPOLOGY_JAVA:
+        from rapid_tpu_torch.utils._native import native_configuration_id
+
+        native = native_configuration_id(
+            [nid.high for nid in node_ids],
+            [nid.low for nid in node_ids],
+            [ep.hostname.encode("utf-8") for ep in endpoints],
+            [ep.port for ep in endpoints],
+        )
+        if native is not None:
+            return to_signed64(native)
     hash_port = xxh64_int4 if topology == TOPOLOGY_JAVA else xxh64_int
     h = 1
     for nid in node_ids:
@@ -169,12 +178,11 @@ class MembershipView:
     # -- internal ---------------------------------------------------------
 
     def _bulk_insert(self, endpoints: List[Endpoint]) -> None:
-        """Construct all K rings in one pass: batch-hash every key (in the
-        native topology with the engine's numpy XXH64,
-        ``ops.rings.endpoint_ring_keys``, bit-identical to :func:`ring_key`;
-        per endpoint in the java topology) and sort each ring once.
+        """Construct all K rings in one pass: batch-hash every key (native
+        xxh64 when the C library is built — bit-identical to the Python
+        path — else the per-endpoint fallback) and sort each ring once.
         O(K·N log N) against the incremental path's O(K·N²) list churn,
-        and the batch hash replaces K·N Python hash calls. Matters
+        with ~100× less hashing overhead via the native batch. Matters
         wherever a whole view is (re)built: join responses, checkpoint
         resume, and config catch-up installs, which run inside the protocol
         lock. Tie-break matches ``_insert`` exactly: equal keys order by
@@ -186,10 +194,13 @@ class MembershipView:
             raise ValueError("_bulk_insert requires an empty view")
         keys_kn = None
         if self.topology == TOPOLOGY_NATIVE:
-            from rapid_tpu_torch.ops.rings import endpoint_ring_keys
+            from rapid_tpu_torch.utils._native import native_ring_keys_batch
 
-            hi, lo = endpoint_ring_keys(endpoints, self.k)
-            keys_kn = (hi.astype(np.uint64) << np.uint64(32)) | lo.astype(np.uint64)
+            keys_kn = native_ring_keys_batch(
+                [ep.hostname.encode("utf-8") for ep in endpoints],
+                [ep.port for ep in endpoints],
+                self.k,
+            )
         if keys_kn is not None:
             # One vectorized conversion, not K·N numpy scalar extractions.
             key_rows = keys_kn.T.tolist()  # [n][k] python ints

@@ -1,6 +1,12 @@
-"""Engine and serving checkpoints (port of the device half of
+"""Configuration, engine and serving checkpoints (port of
 ``rapid_tpu/utils/checkpoint.py``).
 
+- host path: a ``Configuration`` (identifiers seen, ring-0 member list)
+  <-> bytes in the wire codec's field layout
+  (:func:`configuration_to_bytes`, :func:`save_configuration`, ...), and
+  :func:`view_from_configuration` to resume a host view from one. Native
+  configurations are written as version 1, java ones as version 2 with a
+  trailing topology byte, as in the JAX package;
 - engine path: a cluster's :class:`EngineState` <-> one ``.npz`` file
   (:func:`save_engine_state`, :func:`load_engine_state`);
 - serving path: one crash-consistent checkpoint of a whole serving target,
@@ -8,8 +14,9 @@
   meta block (the supervisor's wave cursor; ``serving/recovery.py``)
   (:func:`save_serving_state`, :func:`load_serving_state`).
 
-The files are the JAX package's format: every lane is written at the JAX
-package's numpy dtype (uint32 as uint32, uint16 as uint16) through
+The files are the JAX package's format: a configuration's bytes are JAX's
+byte for byte, and every engine lane is written at the JAX package's numpy
+dtype (uint32 as uint32, uint16 as uint16) through
 :func:`rapid_tpu_torch.convert.state_to_numpy` and read back through
 :func:`~rapid_tpu_torch.convert.state_from_numpy`, so a file written by
 either package loads in the other, in the wide, compact, bit-packed or
@@ -20,8 +27,7 @@ Durability: the payload is sealed with an xxh64 trailer
 and ``os.replace``, so a reader never sees a half-written file, and a torn,
 truncated or bit-flipped one raises :class:`CheckpointCorruptError`.
 
-Two parts of the JAX module have no counterpart here: the host
-``Configuration`` path, which needs the host stack's codec and views, and
+One part of the JAX module has no counterpart here:
 ``_settle_device_owned``, which works around buffer donation on JAX's CPU
 backend; torch tensors loaded from numpy are ordinary owned tensors.
 """
@@ -47,6 +53,14 @@ from rapid_tpu_torch.convert import (
     state_from_numpy,
     state_to_numpy,
 )
+from rapid_tpu_torch.messaging.codec import (
+    Reader,
+    Writer,
+    read_endpoint,
+    read_node_id,
+    write_endpoint,
+    write_node_id,
+)
 from rapid_tpu_torch.models.state import (
     EngineConfig,
     EngineState,
@@ -58,6 +72,12 @@ from rapid_tpu_torch.models.state import (
     resolve_device,
 )
 from rapid_tpu_torch.ops.rings import ring_perms
+from rapid_tpu_torch.protocol.view import (
+    TOPOLOGY_JAVA,
+    TOPOLOGY_NATIVE,
+    Configuration,
+    MembershipView,
+)
 from rapid_tpu_torch.tenancy.fleet import KNOB_FIELDS
 from rapid_tpu_torch.utils.xxhash import xxh64
 
@@ -109,6 +129,86 @@ def _atomic_write(path, data: bytes) -> None:
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
+
+
+_MAGIC = b"RTCF"
+# v2 appends a topology-mode byte; v1 checkpoints (which predate the
+# java-compat mode and were always native) still load. Native configs are
+# WRITTEN as v1: the trailing byte buys nothing in the default case, and
+# emitting v2 would make every checkpoint unreadable to older readers that
+# only accept v1 — forward incompatibility reserved for java-mode configs,
+# which older readers could not resume correctly anyway.
+_VERSION = 2
+_TOPOLOGY_CODES = {TOPOLOGY_NATIVE: 0, TOPOLOGY_JAVA: 1}
+_TOPOLOGY_NAMES = {code: name for name, code in _TOPOLOGY_CODES.items()}
+
+
+def configuration_to_bytes(config: Configuration) -> bytes:
+    w = Writer()
+    w.raw(_MAGIC)
+    version = 1 if config.topology == TOPOLOGY_NATIVE else _VERSION
+    w.u8(version)
+    w.u32(len(config.node_ids))
+    for nid in config.node_ids:
+        write_node_id(w, nid)
+    w.u32(len(config.endpoints))
+    for ep in config.endpoints:
+        write_endpoint(w, ep)
+    if version >= 2:
+        w.u8(_TOPOLOGY_CODES[config.topology])
+    return w.getvalue()
+
+
+def configuration_from_bytes(data: bytes) -> Configuration:
+    if data[:4] != _MAGIC:
+        raise CheckpointCorruptError("not a rapid_tpu configuration checkpoint")
+    r = Reader(data[4:])
+    try:
+        version = r.u8()
+        if version not in (1, _VERSION):
+            raise ValueError(f"unsupported checkpoint version {version}")
+        node_ids = tuple(read_node_id(r) for _ in range(r.u32()))
+        endpoints = tuple(read_endpoint(r) for _ in range(r.u32()))
+        if version == 1:
+            topology = TOPOLOGY_NATIVE
+        else:
+            code = r.u8()
+            if code not in _TOPOLOGY_NAMES:
+                raise ValueError(f"unknown topology code {code} in checkpoint")
+            topology = _TOPOLOGY_NAMES[code]
+    except CheckpointCorruptError:
+        raise
+    except (struct.error, IndexError, ValueError, EOFError) as exc:
+        # A truncated/bit-flipped blob must surface as the NAMED error, not
+        # a struct/codec traceback — the recovery tier dispatches on it.
+        raise CheckpointCorruptError(
+            f"truncated or corrupt configuration checkpoint: {exc}"
+        ) from exc
+    return Configuration(node_ids, endpoints, topology=topology)
+
+
+def save_configuration(path, config: Configuration) -> None:
+    """Durable twin of :func:`configuration_to_bytes`: xxh64-sealed payload
+    published by atomic tmp+rename."""
+    _atomic_write(path, _seal(configuration_to_bytes(config)))
+
+
+def load_configuration(path) -> Configuration:
+    """Load a :func:`save_configuration` file (or a raw pre-trailer blob);
+    truncation/corruption raises :class:`CheckpointCorruptError`."""
+    return configuration_from_bytes(_unseal(Path(path).read_bytes(), path))
+
+
+def view_from_configuration(config: Configuration, k: int) -> MembershipView:
+    """Resume: rebuild the K rings from a configuration snapshot (the
+    snapshot's topology mode rides along, so a java-compat cluster resumes
+    java-compat)."""
+    return MembershipView(
+        k,
+        node_ids=config.node_ids,
+        endpoints=config.endpoints,
+        topology=config.topology,
+    )
 
 
 def _cfg_entries(cfg: EngineConfig) -> Dict[str, np.ndarray]:

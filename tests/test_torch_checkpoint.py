@@ -5,6 +5,13 @@ the other way round, in the wide, compact, bit-packed and fleet-stacked
 layouts; a JAX checkpoint directory resumes in the port to the state JAX's
 own resume reaches. The shapes of ``tests/test_checkpoint.py`` (N=24 in 40
 slots, K=3, C=2; a fleet of 3 x 16).
+
+The host ``Configuration`` checkpoints are JAX's byte for byte both ways,
+native ones as version 1 and java ones as version 2, on the grids of
+``tests/test_checkpoint.py`` (40 members added one by one at K=10; 8 in a
+file) and ``tests/test_view_java_compat.py`` (its golden members), and a
+flipped, truncated, wrong-magic or unknown-version blob raises
+``CheckpointCorruptError`` in both packages alike.
 """
 
 import io
@@ -13,7 +20,10 @@ import numpy as np
 import pytest
 import torch
 
+import rapid_tpu.types as jt
+import rapid_tpu_torch.types as tt
 from rapid_tpu.models.state import pack_masks as jax_pack_masks
+from rapid_tpu.protocol import view as j_view
 from rapid_tpu.models.virtual_cluster import VirtualCluster as JaxCluster
 from rapid_tpu.serving import PoissonChurn as JaxChurn
 from rapid_tpu.serving import SimulatedProcessKill as JaxKill
@@ -25,6 +35,7 @@ from rapid_tpu.utils import checkpoint as jax_ckpt
 from rapid_tpu_torch.convert import knobs_to_numpy, state_to_numpy
 from rapid_tpu_torch.models.state import pack_masks, unpack_masks
 from rapid_tpu_torch.models.virtual_cluster import VirtualCluster as TorchCluster
+from rapid_tpu_torch.protocol import view as t_view
 from rapid_tpu_torch.serving import PoissonChurn, recovery
 from rapid_tpu_torch.tenancy import TenantFleet as TorchFleet
 from rapid_tpu_torch.utils import checkpoint as ckpt
@@ -219,3 +230,116 @@ def test_corruption_is_named(targets, tmp_path):
     # The published file never appears half-written: no temporary is left.
     assert sorted(p.name for p in tmp_path.iterdir() if ".tmp." in p.name) == []
     assert torch.equal(state.alive, tt.state.alive)
+
+
+# -- host Configuration checkpoints -----------------------------------------
+
+JAX_HOST = dict(t=jt, view=j_view, ckpt=jax_ckpt)
+PORT_HOST = dict(t=tt, view=t_view, ckpt=ckpt)
+
+
+def _added_one_by_one(pkg, n, topology):
+    """``tests/test_checkpoint.py``'s view: ``n`` members added by
+    ``ring_add`` at K=10."""
+    view = pkg["view"].MembershipView(10, topology=topology)
+    for i in range(n):
+        view.ring_add(pkg["t"].Endpoint(f"10.3.0.{i}", 4000 + i), pkg["t"].NodeId(i, i * 7))
+    return view.configuration
+
+
+def _golden(pkg, n, topology):
+    """``tests/test_view_java_compat.py``'s golden members (ids across the
+    signed-long sign flip)."""
+    t = pkg["t"]
+    ids = [t.NodeId(1, 2), t.NodeId((1 << 63) + 7, 3), t.NodeId(42, (1 << 63) + 1)]
+    eps = [t.Endpoint("alpha.rapid", 50001), t.Endpoint("beta.rapid", 50002),
+           t.Endpoint("gamma.rapid", 50003)]
+    return pkg["view"].Configuration(ids, eps, topology=topology)
+
+
+CONFIG_CASES = [(_added_one_by_one, 40), (_added_one_by_one, 8), (_golden, 3)]
+
+
+def _same_config(a, b):
+    return ([(n.high, n.low) for n in a.node_ids] == [(n.high, n.low) for n in b.node_ids]
+            and [str(e) for e in a.endpoints] == [str(e) for e in b.endpoints]
+            and a.topology == b.topology and a.configuration_id == b.configuration_id)
+
+
+@pytest.mark.parametrize("topology", ["native", "java"])
+@pytest.mark.parametrize("case", range(len(CONFIG_CASES)))
+def test_configuration_bytes_equal_jax_both_ways(case, topology):
+    make, n = CONFIG_CASES[case]
+    jax_config, port_config = make(JAX_HOST, n, topology), make(PORT_HOST, n, topology)
+    blob = ckpt.configuration_to_bytes(port_config)
+    assert blob == jax_ckpt.configuration_to_bytes(jax_config)
+    assert blob[:4] == b"RTCF" and blob[4] == (1 if topology == "native" else 2)
+    assert _same_config(jax_ckpt.configuration_from_bytes(blob), jax_config)
+    assert _same_config(ckpt.configuration_from_bytes(blob), port_config)
+    jax_view = jax_ckpt.view_from_configuration(ckpt.configuration_from_bytes(blob), 10)
+    port_view = ckpt.view_from_configuration(jax_ckpt.configuration_from_bytes(blob), 10)
+    assert port_view.topology == jax_view.topology == topology
+    assert port_view.configuration_id == jax_view.configuration_id
+    for ring in range(10):
+        assert [str(e) for e in port_view.ring(ring)] == [str(e) for e in jax_view.ring(ring)]
+
+
+def test_configuration_files_cross_both_ways(tmp_path):
+    for topology in ("native", "java"):
+        jax_config = _added_one_by_one(JAX_HOST, 8, topology)
+        port_config = _added_one_by_one(PORT_HOST, 8, topology)
+        jax_ckpt.save_configuration(tmp_path / "jax.rtcf", jax_config)
+        ckpt.save_configuration(tmp_path / "port.rtcf", port_config)
+        assert not list(tmp_path.glob("*.tmp.*"))
+        assert (tmp_path / "jax.rtcf").read_bytes() == (tmp_path / "port.rtcf").read_bytes()
+        assert _same_config(ckpt.load_configuration(tmp_path / "jax.rtcf"), port_config)
+        assert _same_config(jax_ckpt.load_configuration(tmp_path / "port.rtcf"), jax_config)
+        # A raw blob without the trailer (a writer before it) loads in both.
+        raw = ckpt.configuration_to_bytes(port_config)
+        (tmp_path / "raw.rtcf").write_bytes(raw)
+        assert _same_config(ckpt.load_configuration(tmp_path / "raw.rtcf"), port_config)
+        assert _same_config(jax_ckpt.load_configuration(tmp_path / "raw.rtcf"), jax_config)
+
+
+def test_v1_and_v2_blobs_load_alike():
+    v1 = jax_ckpt.configuration_to_bytes(_golden(JAX_HOST, 3, "native"))
+    assert v1[4] == 1
+    # A native configuration written as v2 (topology code 0) is native.
+    v2_native = v1[:4] + bytes([2]) + v1[5:] + bytes([0])
+    for blob in (v1, v2_native):
+        assert ckpt.configuration_from_bytes(blob).topology == "native"
+        assert _same_config(ckpt.configuration_from_bytes(blob),
+                            _golden(PORT_HOST, 3, "native"))
+    for bad in (v1[:4] + bytes([3]) + v1[5:], v1[:4] + bytes([2]) + v1[5:] + bytes([7])):
+        for module in (jax_ckpt, ckpt):
+            with pytest.raises(module.CheckpointCorruptError):
+                module.configuration_from_bytes(bad)
+
+
+def _load_outcome(module, path):
+    try:
+        return ("ok", module.load_configuration(path).configuration_id)
+    except module.CheckpointCorruptError:
+        return ("corrupt", None)
+
+
+def test_corrupt_configuration_files_are_named_as_in_jax(tmp_path):
+    config = _added_one_by_one(PORT_HOST, 8, "java")
+    path = tmp_path / "config.rtcf"
+    ckpt.save_configuration(path, config)
+    data = path.read_bytes()
+    flipped = bytearray(data)
+    flipped[len(flipped) // 3] ^= 0xFF
+    damaged = {"flip": bytes(flipped), "truncated": data[: len(data) // 2],
+               "magic": b"XXXX" + data[4:], "empty": b""}
+    for name, blob in damaged.items():
+        (tmp_path / name).write_bytes(blob)
+        assert _load_outcome(ckpt, tmp_path / name) == ("corrupt", None), name
+        assert _load_outcome(jax_ckpt, tmp_path / name) == ("corrupt", None), name
+    # Every truncation of the raw bytes raises the named error in both.
+    raw = ckpt.configuration_to_bytes(config)
+    for cut in range(len(raw)):
+        for module in (jax_ckpt, ckpt):
+            with pytest.raises(module.CheckpointCorruptError):
+                module.configuration_from_bytes(raw[:cut])
+    assert issubclass(ckpt.CheckpointCorruptError, ValueError)

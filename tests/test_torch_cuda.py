@@ -15,7 +15,9 @@ quorum, CUDA by default, a 5-node cluster converging on them), and the
 host chaos harness's engine replay on the card (``check_all`` on a flat
 and a hierarchical family, equal to the CPU's replay; its delivery calls
 free of synchronizing calls) with a 2-cohort hierarchical service whose
-card cut detector decides what the host detector decides.
+card cut detector decides what the host detector decides, and the native
+host library built there with a 2,048-endpoint cluster resumed from a saved
+``Configuration`` on the card equal to the same on the CPU.
 Every test needs a CUDA card and ``nvcc``
 and skips without them. On a GPU machine, from the root of a checkout
 (``--noconftest`` because the suite's conftest configures JAX, which the
@@ -255,6 +257,39 @@ def test_endpoint_cluster_on_card_matches_cpu(card):
     for device in (card, torch.device("cpu")):
         vc, _ = endpoint_churn(endpoint_list(1_024), 1_000, 24, 24, device)
         results[device.type] = resolve(vc, 1_000)
+        lanes[device.type] = {**state_to_numpy(vc.state), **state_to_numpy(vc.faults)}
+    assert results["cuda"] == results["cpu"] and results["cuda"][2]
+    for field, want in lanes["cpu"].items():
+        np.testing.assert_array_equal(lanes["cuda"][field], want, err_msg=field)
+
+
+@pytest.mark.cuda
+def test_native_host_library_builds_on_the_card_machine(card):
+    from rapid_tpu_torch import _build
+    from rapid_tpu_torch.utils import _native
+    from rapid_tpu_torch.utils.xxhash import xxh64
+
+    assert _native.ensure_built(), _build.build_log.get("rapid_native")
+    _native._attempted = False
+    assert _native.get_lib() is not None
+    assert _native.native_xxh64(b"rapid", 7) == xxh64(b"rapid", 7)
+
+
+@pytest.mark.cuda
+def test_configuration_resume_on_card_matches_cpu(card, tmp_path):
+    from chip_smoke import endpoint_churn, endpoint_list, seeded_node_ids
+    from rapid_tpu_torch.protocol.view import MembershipView
+    from rapid_tpu_torch.utils.checkpoint import load_configuration, save_configuration
+
+    endpoints = endpoint_list(2_048)
+    config = MembershipView(10, node_ids=seeded_node_ids(2_000, 22),
+                            endpoints=endpoints[:2_000]).configuration
+    save_configuration(tmp_path / "config.rtcf", config)
+    resumed = list(load_configuration(tmp_path / "config.rtcf").endpoints) + endpoints[2_000:]
+    lanes, results = {}, {}
+    for device in (card, torch.device("cpu")):
+        vc, _ = endpoint_churn(resumed, 2_000, 48, 48, device)
+        results[device.type] = resolve(vc, 2_000)
         lanes[device.type] = {**state_to_numpy(vc.state), **state_to_numpy(vc.faults)}
     assert results["cuda"] == results["cpu"] and results["cuda"][2]
     for field, want in lanes["cpu"].items():

@@ -8,11 +8,15 @@
   exposition, engine telemetry, profiling), or the host membership path
   alone (``protocol``, ``messaging``, ``monitoring``), or the hierarchical
   service, the UDP and gossip transports, the windowed detector and the
-  host chaos harness alone (``hier``, ``sim``).
+  host chaos harness alone (``hier``, ``sim``), or the reference-wire
+  interop, the native library's bridge or the checkpoint module alone;
+  ``rapid_tpu_torch.interop`` and its protobuf conversions import with
+  ``grpc`` blocked.
 - The delivery wrapper raises on inputs its kernel does not take instead of
   quietly taking the plain version.
 """
 
+import json
 import subprocess
 import sys
 from pathlib import Path
@@ -45,8 +49,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_rapid_tpu():
     # Every module of the port was imported: tenancy, utils, the narrow-lane
     # rule (_narrow), the endpoint type, the host hashing (utils.xxhash), the
     # serving tier (serving, utils.checkpoint, ...) and the chaos subsystem
-    # (settings, hier, sim, tenancy.chaos) included.
-    assert int(out[0]) >= 40
+    # (settings, hier, sim, tenancy.chaos), the native library's bridge
+    # (utils._native) and the interop (interop.*) included.
+    assert int(out[0]) >= 78
     assert out[1].strip() == "[]", f"the port loaded: {out[1]}"
 
 
@@ -136,6 +141,50 @@ def test_hier_and_host_sim_import_no_jax_and_no_rapid_tpu():
         check=True,
     ).stdout.strip()
     assert out == "[]", f"the hierarchy or the host chaos harness loaded: {out}"
+
+
+_HOST_RUNTIME_PROBES = {
+    "interop": "import rapid_tpu_torch.interop\n"
+               "from rapid_tpu_torch.interop import convert, grpc_transport, proto_schema",
+    "native": "from rapid_tpu_torch.utils import _native",
+    "checkpoint": "from rapid_tpu_torch.utils import checkpoint",
+}
+
+
+@pytest.mark.parametrize("probe", sorted(_HOST_RUNTIME_PROBES))
+def test_host_runtime_modules_import_no_jax_and_no_rapid_tpu(probe):
+    code = _HOST_RUNTIME_PROBES[probe] + (
+        "\nimport sys\nprint(sorted(m for m in sys.modules"
+        " if m.split('.')[0] in ('jax', 'jaxlib', 'rapid_tpu')))")
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, check=True,
+    ).stdout.strip()
+    assert out == "[]", f"{probe} loaded: {out}"
+
+
+_NO_GRPC_PROBE = """
+import sys
+sys.modules["grpc"] = None  # import grpc raises ImportError
+import rapid_tpu_torch.interop as interop
+from rapid_tpu_torch.interop.convert import request_to_proto
+from rapid_tpu_torch.types import Endpoint, ProbeMessage
+frame = request_to_proto(ProbeMessage(Endpoint("10.0.0.1", 5000))).SerializeToString()
+try:
+    interop.GrpcServer
+    print("grpc imported")
+except ImportError:
+    print(frame.hex())
+"""
+
+
+def test_interop_imports_without_grpc():
+    pytest.importorskip("google.protobuf")
+    out = subprocess.run(
+        [sys.executable, "-c", _NO_GRPC_PROBE], cwd=REPO, capture_output=True, text=True,
+        check=True,
+    ).stdout.strip()
+    frames = json.loads((REPO / "tests" / "fixtures" / "wire_frames.json").read_text())
+    assert out == frames["requests"]["ProbeMessage"]
 
 
 def _args(n=64, k=3, c=5):

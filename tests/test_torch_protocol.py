@@ -1,16 +1,19 @@
 """The port's host protocol modules against the JAX package's, exactly.
 
-- The plain copies (errors, types, clock, metadata, events, the cut
-  detector, Paxos and Fast Paxos, the service, the cluster, the transports
-  with UDP and gossip, the failure detectors with the windowed one, the
-  hierarchical service, and the chaos runner, faults, oracles and fuzzer)
-  have the JAX modules' code: their syntax trees are equal once docstrings
-  are dropped and the package name is read as one. The port's own
+- The plain copies (errors, types, clock, metadata, events, the view, the
+  cut detector, Paxos and Fast Paxos, the service, the cluster, the
+  transports with UDP and gossip, the failure detectors with the windowed
+  one, the hierarchical service, the chaos runner, faults, oracles and
+  fuzzer, the native library's bridge and the reference-wire interop) have
+  the JAX modules' code: their syntax trees are equal once docstrings are
+  dropped and the package name is read as one. The ``Configuration`` path
+  of ``utils/checkpoint.py`` is pinned name by name. The port's own
   departures are named where they are made: Fast Paxos takes its quorum
   rule from ``ops/consensus.py``; the chaos modules take a trailing
-  ``device`` wherever they reach the engine replay; and the engine half of
+  ``device`` wherever they reach the engine replay; the engine half of
   the oracles reads the card through the port's own calls (held by
-  ``tests/test_torch_chaos.py`` and ``tests/test_torch_host_sim.py``).
+  ``tests/test_torch_chaos.py`` and ``tests/test_torch_host_sim.py``); and
+  the native bridge builds its library into the port's ``build/``.
 - Types, ``NodeId`` round-trips, ``MembershipView`` (both topologies, the
   java golden fixtures) and the wire codec (bytes equal for every message
   and response type, and each package decoding the other's frames).
@@ -86,6 +89,17 @@ _COPIES = [
     "monitoring/static_fd.py", "monitoring/windowed.py",
     "hier/__init__.py", "hier/cohorts.py", "hier/broadcast.py", "hier/service.py",
     "sim/__init__.py", "sim/faults.py", "sim/scenario.py", "sim/oracles.py", "sim/fuzz.py",
+    "protocol/view.py", "utils/_native.py",
+    "interop/__init__.py", "interop/proto_schema.py", "interop/convert.py",
+    "interop/grpc_transport.py",
+]
+
+#: The ``Configuration`` path of ``utils/checkpoint.py``, pinned name by
+#: name: the rest of the module is the engine and serving half.
+_CHECKPOINT_CONFIGURATION = [
+    "CheckpointCorruptError", "_seal", "_unseal", "_atomic_write", "_MAGIC", "_VERSION",
+    "_TOPOLOGY_CODES", "_TOPOLOGY_NAMES", "configuration_to_bytes", "configuration_from_bytes",
+    "save_configuration", "load_configuration", "view_from_configuration",
 ]
 
 #: The engine half of the oracles: the port reads the card through its own
@@ -120,15 +134,20 @@ def _drop(body, pred):
     return [n for n in body if not pred(n)] or [ast.Pass()]
 
 
-def _normalized(path: Path, package: str, rel: str) -> str:
-    """The module's syntax tree without docstrings, with ``package`` read as
-    ``rapid_tpu``, and with the port's named departures taken out of both
-    sides."""
+def _without_docstrings(path: Path) -> ast.Module:
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):
         if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef)):
             if node.body and _is_docstring(node.body[0]):
                 node.body = node.body[1:] or [ast.Pass()]
+    return tree
+
+
+def _normalized(path: Path, package: str, rel: str) -> str:
+    """The module's syntax tree without docstrings, with ``package`` read as
+    ``rapid_tpu``, and with the port's named departures taken out of both
+    sides."""
+    tree = _without_docstrings(path)
     if rel == "protocol/fast_paxos.py":
         # One quorum rule in the port: ops/consensus.fast_paxos_quorum.
         tree.body = _drop(tree.body, lambda n: (
@@ -148,6 +167,15 @@ def _normalized(path: Path, package: str, rel: str) -> str:
         for node in ast.walk(tree):
             if isinstance(node, ast.FunctionDef):
                 node.body = _drop(node.body, lambda n: isinstance(n, ast.ImportFrom))
+    if rel == "utils/_native.py":
+        # The port builds csrc/rapid_native.cpp into its own build/
+        # (_build.build_host), never under native/.
+        tree.body = _drop(tree.body, lambda n: (
+            isinstance(n, ast.Assign) and any(
+                getattr(t, "id", None) in ("_REPO_NATIVE_DIR", "_LIB_PATH") for t in n.targets)
+            or isinstance(n, ast.FunctionDef) and n.name == "_try_build"
+            or isinstance(n, ast.Import) and [a.name for a in n.names] == ["subprocess"]
+            or isinstance(n, ast.ImportFrom) and n.module in ("pathlib", package)))
     return ast.dump(tree).replace(package, "rapid_tpu")
 
 
@@ -156,6 +184,24 @@ def test_copy_has_the_jax_modules_code(rel):
     port = _normalized(REPO / "rapid_tpu_torch" / rel, "rapid_tpu_torch", rel)
     ref = _normalized(REPO / "rapid_tpu" / rel, "rapid_tpu_torch", rel)
     assert port == ref, f"rapid_tpu_torch/{rel} drifted from rapid_tpu/{rel}"
+
+
+def _top_level(path: Path, name: str) -> str:
+    """The syntax tree of the top-level class, function or assignment that
+    defines ``name``, without docstrings."""
+    found = [ast.dump(node) for node in _without_docstrings(path).body
+             if getattr(node, "name", None) == name
+             or isinstance(node, ast.Assign) and any(getattr(t, "id", None) == name
+                                                     for t in node.targets)]
+    assert len(found) == 1, f"{path.name} defines {name} {len(found)} times"
+    return found[0]
+
+
+@pytest.mark.parametrize("name", _CHECKPOINT_CONFIGURATION)
+def test_checkpoint_configuration_path_has_the_jax_code(name):
+    rel = "utils/checkpoint.py"
+    assert (_top_level(REPO / "rapid_tpu_torch" / rel, name)
+            == _top_level(REPO / "rapid_tpu" / rel, name))
 
 
 def test_quorum_rule_is_the_consensus_ops_one():
