@@ -191,6 +191,27 @@ exits non-zero:
    joiners on the card, through phase 14's churn (2,500 crashes, 2,500
    joins) to the right member set; every round's delivery inputs
    captured, then through phase 10's checks and timings.
+23. sharded: the sharded engine (``rapid_tpu_torch.parallel``) on a
+   one-rank NCCL group (a file rendezvous in a temporary directory, on the
+   loopback interface), every collective really issued. (a) The delivery
+   kernel at the churn shape on column slices at slot offsets 0, 33,333
+   and 51,250 and on the upper cohort word at cohort offset 32, in the
+   two draw modes: each bit for bit against its plain version, side by
+   side against the whole launch. (b) Phase 4's churn through
+   ``make_sharded_wave`` on the ``(cohort=1, nodes=1)`` mesh, (c) phase
+   5's 1M point through ``make_sharded_step`` to decision on
+   ``(nodes=1)``, (d) phase 8's 256x1,024 fleet in one 96-round wave
+   through ``make_fleet_wave`` on ``(tenant=1, cohort=1, nodes=1)``, (e)
+   six churn rounds with the plane and a 64-round ring through
+   ``make_sharded_step_trace``: each held against its unsharded twin, in
+   turns (b, c, e: two each; d: a warm-up and one each), on the same seeds (rounds, cuts, sizes, checksum and every lane,
+   digests for (e)), with equal host reads and one delivery launch a
+   round, every round under ``set_sync_debug_mode("error")`` outside the
+   counted reads; the collectives per round by site, kind and payload
+   class with their bytes, and one profiled churn a side; beside them the
+   host microseconds of one collective on the one-rank group. The rounds
+   of (b)'s and (d)'s warm-ups and of (c)'s first sharded run are
+   captured for phase 10's checks.
 
 A kernel's bound (``delivery_bound``) is the larger of its bytes (each
 input once, the output once) over the HBM rate and the delay draws its
@@ -201,8 +222,8 @@ The delivery kernel's launch count is zeroed just before each of the
 paths 4, 5, 8, 12 (churn and 1M), 13, 14, 15 (each stream), 16 (each drill
 with its twin), 17 (the timed fleet), 18 (the three churns) and 19 (each
 scraped path and the profiled churn) and 21 (a: the grid's ``check_all``
-replays) and 22 (f) and read just after; phase 20 and phase 21's (b) and
-(c) zero it and must leave it at 0. Then the kernels
+replays) and 22 (f) and 23 (each of b-e, each side) and read just after;
+phase 20 and phase 21's (b) and (c) zero it and must leave it at 0. Then the kernels
 line (with ptxas's facts), the card's
 name and power limit from ``nvidia-smi``, and as the last line
 ``{"ok": true, "device": {...}}``.
@@ -336,14 +357,16 @@ def delivery_needed_draws(blocked, age, k, c, spread):
     return total
 
 
-def delivery_bound(blocked, age, epoch, k, c, spread, permille):
+def delivery_bound(blocked, age, epoch, k, c, spread, permille, *offsets):
     """(bound_ms, bound_by, needed draws) of one delivery call on these
     inputs (one cluster or a fleet). Bytes: each input read once and the
     ``[t, c, n]`` output written once. Operations: the draws these inputs
     need (:func:`delivery_needed_draws`) times the operations of one draw
     (:func:`delivery_ops_per_draw`); the per-edge test is not counted, since
     a word-wide kernel forms 32 outputs with a few operations. The larger of
-    the two times, at the H100's HBM rate and int32 issue rate."""
+    the two times, at the H100's HBM rate and int32 issue rate. A shard's
+    ``offsets`` (global slot and cohort of its first column and row) move
+    no bytes and change no count."""
     n = age.shape[-1]
     nbytes = 4 * (blocked.numel() + age.numel() + epoch.numel() + epoch.numel() * c * n)
     draws = delivery_needed_draws(blocked, age, k, c, spread)
@@ -3115,6 +3138,451 @@ def phase_config_resume(dev, native, captured):
     return launches
 
 
+SHARDED = dict(offsets=(0, 33_333, 51_250), churn_timed=2, trace_rounds=6, trace=64)
+
+
+@contextlib.contextmanager
+def syncs_only_in_reads(dev):
+    """A context in which every synchronizing call raises
+    (``torch.cuda.set_sync_debug_mode("error")``) except inside the
+    engine's counted reads (``_host.read``), which are its branch points."""
+    from rapid_tpu_torch import _host
+
+    real = _host.read
+
+    def read(t):  # _host.read with the check lifted, counted on the real one
+        real.count += 1
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            return t.tolist()
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    torch.cuda.synchronize(dev)
+    _host.read = read
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        _host.read = real
+
+
+def nccl_group():
+    """A one-rank NCCL process group over a file in a fresh temporary
+    directory, on the loopback interface (the card machine has no other
+    network). Returns the directory, which the caller removes after
+    ``destroy_process_group``."""
+    from rapid_tpu_torch.parallel.multihost import initialize_multihost
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    os.environ.setdefault("NCCL_IB_DISABLE", "1")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    initialize_multihost(f"file://{tmp}/store", 1, 0, device_type="cuda")
+    return tmp
+
+
+def offset_kernel_slices(dev):
+    """Phase 23 (a): the delivery kernel on column slices of the churn
+    shape at global slot offsets (and on the upper cohort word at cohort
+    offset 32), each bit for bit against its plain version, the slices side
+    by side against the whole launch, in the two draw modes."""
+    from rapid_tpu_torch.ops.kernels import delivery_new_bits, delivery_new_bits_ref
+
+    k, n, c = HEADLINE["k"], HEADLINE["n"] + HEADLINE["n_join"], HEADLINE["cohorts"]
+    cuts = list(SHARDED["offsets"]) + [n]
+    out = []
+    for spread, permille in DELAY_MODES[1:]:
+        blocked, age, epoch = delivery_inputs(c, k, n, 70 + spread, dev)
+        whole = delivery_new_bits(blocked, age, epoch, k, c, spread, permille)
+        check(torch.equal(whole, delivery_new_bits_ref(blocked, age, epoch, k, c, spread, permille)),
+              f"whole launch differs from its plain version (spread {spread})")
+        parts, slices = [], []
+        for lo, hi in zip(cuts[:-1], cuts[1:]):
+            args = (blocked[:, lo:hi].contiguous(), age[:, lo:hi].contiguous(), epoch, k, c,
+                    spread, permille, lo, 0)
+            part = delivery_new_bits(*args)
+            check(torch.equal(part, delivery_new_bits_ref(*args)),
+                  f"offset launch differs from its plain version at slot offset {lo}")
+            parts.append(part)
+            slices.append(args)
+        check(torch.equal(torch.cat(parts, -1), whole), "the slices side by side differ from the whole")
+        upper = (blocked[k:].contiguous(), age, epoch, k, 32, spread, permille, 0, 32)
+        got = delivery_new_bits(*upper)
+        check(torch.equal(got, whole[32:]) and torch.equal(got, delivery_new_bits_ref(*upper)),
+              "the upper cohort word at cohort offset 32 differs from the whole launch")
+        out.append(dict(spread=spread, permille=permille, slot_offsets=list(SHARDED["offsets"]),
+                        cohort_offset=32, max_abs_err=0,
+                        slices_ms=cuda_ms(lambda: [delivery_new_bits(*a) for a in slices]),
+                        whole_ms=cuda_ms(lambda: delivery_new_bits(blocked, age, epoch, k, c,
+                                                                   spread, permille))))
+    return out
+
+
+def collective_summary(ctx, rounds, n, c, tenants=1):
+    """Collectives per round of one sharded run, by site, kind and payload
+    class, with their bytes (from the context's log). A fleet's classes
+    are per tenant: its payloads are priced against ``tenants`` clusters'
+    n and c."""
+    n = n * tenants
+    from rapid_tpu_torch.parallel.collective_facts import (
+        audit_collectives, collective_violations, payload_class,
+    )
+
+    rows = audit_collectives(ctx.log, n, c)
+    by = {}
+    for r in rows:
+        key = f"{r['location']}/{r['kind']}/{payload_class(r['bytes'], n, c)}"
+        count, nbytes = by.get(key, (0, 0))
+        by[key] = (count + 1, nbytes + r["wire_bytes"])
+    violations = collective_violations(rows)
+    return {
+        "collectives": len(rows), "collectives_per_round": len(rows) / rounds,
+        "bytes_per_round": sum(r["wire_bytes"] for r in rows) / rounds,
+        "per_round_by_site_kind_class": {
+            key: {"count": count / rounds, "bytes": nbytes / rounds}
+            for key, (count, nbytes) in sorted(by.items())},
+        "labels": sorted({r["label"] for r in rows}),
+        "violations": {key: len(v) for key, v in violations.items()},
+    }
+
+
+def collective_us(dev, calls=500):
+    """Host microseconds per collective on the one-rank group, ``calls``
+    back to back after a warm-up, the card synchronized at the end: an
+    all-reduce of one int32 and an all-gather of a 102,500-byte lane (the
+    churn's ``[1, n]`` membership), through the round body's context."""
+    from rapid_tpu_torch.parallel.collectives import CollectiveContext
+    from rapid_tpu_torch.parallel.mesh import make_mesh
+
+    ctx = CollectiveContext(make_mesh(), HEADLINE["n"] + HEADLINE["n_join"], HEADLINE["cohorts"])
+    scalar = torch.zeros((1,), dtype=torch.int32, device=dev)
+    lane = torch.zeros((1, ctx.n), dtype=torch.bool, device=dev)
+    out = {}
+    for name, call in (("all_reduce_int32", lambda: ctx.sum(scalar, ("nodes",), "probe")),
+                       ("all_gather_n_bool", lambda: ctx.gather(lane, "nodes", "probe")),
+                       ("torch_add_int32", lambda: scalar + 1)):
+        for _ in range(50):
+            call()
+        torch.cuda.synchronize(dev)
+        start = time.perf_counter()
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize(dev)
+        out[name] = (time.perf_counter() - start) / calls * 1e6
+    return out
+
+
+def turns(sides, order):
+    """Run ``sides[name]()`` in ``order``; each returns a dict with ``ms``.
+    Returns name -> the list of its results in order."""
+    out = {name: [] for name in sides}
+    for name in order:
+        out[name].append(sides[name]())
+    return out
+
+
+def sharded_churn(dev, mesh, captured):
+    """Phase 23 (b): the N=100,000 5% churn through ``make_sharded_wave`` on
+    the one-rank ``('cohort', 'nodes')`` mesh against ``run_until_membership``
+    unsharded, in turns on fresh clusters from one seed."""
+    from rapid_tpu_torch import _host
+    from rapid_tpu_torch.models.virtual_cluster import run_until_membership, sync_checksum
+    from rapid_tpu_torch.ops.kernels import delivery_new_bits
+    from rapid_tpu_torch.parallel.mesh import local_tree, make_sharded_wave, shard_faults, shard_state
+
+    n = HEADLINE["n"]
+    want = {}
+
+    def run(side, capture=None):
+        vc, _ = churn_cluster(n, HEADLINE["n_join"], HEADLINE["n_crash"], HEADLINE["cohorts"], 4, dev)
+        cfg, faults = vc.cfg, vc.faults
+        if side == "sharded":
+            wave = make_sharded_wave(cfg, mesh, max_cuts=4)
+            state, faults_in = shard_state(vc.state, mesh), shard_faults(faults, mesh)
+        torch.cuda.synchronize(dev)
+        delivery_new_bits.launches, reads0 = 0, _host.read.count
+        start = time.perf_counter()
+        with capturing(capture), syncs_only_in_reads(dev):
+            if side == "sharded":
+                state, steps, cuts, resolved, sizes = wave(state, faults_in, n, 96 * 4, 1)
+                state = local_tree(state)
+            else:
+                state, steps, cuts, resolved, sizes, _, _ = run_until_membership(
+                    cfg, vc.state, faults, n, 96 * 4, 4, 1)
+                sizes = tuple(sizes) + (-1,) * (4 - len(sizes))
+        torch.cuda.synchronize(dev)
+        ms = (time.perf_counter() - start) * 1e3
+        launches, reads = delivery_new_bits.launches, _host.read.count - reads0
+        check(resolved, f"{side} churn unresolved: {cuts} cuts in {steps} rounds")
+        check(launches == steps, f"{side} churn: {launches} launches in {steps} rounds")
+        result = (steps, cuts, resolved, tuple(sizes), _host.read(sync_checksum(state, faults)))
+        lanes = plane_lanes(state)
+        if side in want:
+            check(want[side][0] == result, f"{side} churn differs between its samples")
+        want.setdefault(side, (result, lanes))
+        out = dict(ms=ms, rounds=steps, cuts=cuts, host_reads=reads,
+                   host_reads_per_round=reads / steps, kernel_launches=launches)
+        if side == "sharded":
+            out["collectives"] = collective_summary(wave.context, steps, cfg.n, cfg.c)
+        return out
+
+    warm = {"unsharded": run("unsharded"), "sharded": run("sharded", captured)}
+    timed = turns({"unsharded": lambda: run("unsharded"), "sharded": lambda: run("sharded")},
+                  ["sharded", "unsharded", "unsharded", "sharded"][: 2 * SHARDED["churn_timed"]])
+    profiles = {}
+    for side in ("unsharded", "sharded"):
+        vc, _ = churn_cluster(n, HEADLINE["n_join"], HEADLINE["n_crash"], HEADLINE["cohorts"], 4, dev)
+        if side == "sharded":
+            wave = make_sharded_wave(vc.cfg, mesh, max_cuts=4)
+            args = (shard_state(vc.state, mesh), shard_faults(vc.faults, mesh), n, 96 * 4, 1)
+            drive = functools.partial(wave, *args)
+        else:
+            drive = functools.partial(run_until_membership, vc.cfg, vc.state, vc.faults, n, 96 * 4,
+                                      4, 1)
+        (_, steps, *_), prof = profile_run(dev, drive)
+        profiles[side] = {"kernels_per_round": prof["device_kernels"] / steps,
+                          "host_ops_per_round": prof["host_ops"] / steps,
+                          **{key: prof[key] for key in ("wall_ms", "device_ms", "host_op_self_ms",
+                                                         "device_busy_share", "top")}}
+    check(want["sharded"][0] == want["unsharded"][0],
+          f"sharded churn {want['sharded'][0]} differs from unsharded {want['unsharded'][0]}")
+    check_same_lanes(want["sharded"][1], want["unsharded"][1], "sharded churn")
+    sh, un = timed["sharded"], timed["unsharded"]
+    check(all(a["host_reads"] == b["host_reads"] for a, b in zip(sh, un)),
+          "the sharded churn made other host reads than the unsharded")
+    steps, cuts, _, sizes, checksum = want["sharded"][0]
+    return {"n": n, "mesh": "(cohort=1, nodes=1)", "rounds": steps, "cuts": cuts,
+            "sizes": list(sizes), "checksum": checksum, "lanes_bit_exact": len(want["sharded"][1]),
+            "warmup": warm, "timed": timed,
+            "median_ms": {side: statistics.median(r["ms"] for r in rs) for side, rs in timed.items()},
+            "profile": profiles, "launches": sh[-1]["kernel_launches"]}
+
+
+def sharded_scale_point(dev, mesh, captured):
+    """Phase 23 (c): the N=1,000,000 crash-1% point through
+    ``make_sharded_step`` to decision on the one-rank ``('nodes',)`` mesh
+    against ``engine_step`` rounds unsharded, two seeds, in turns; the
+    first sharded run's delivery rounds go to ``captured``."""
+    from rapid_tpu_torch import _host
+    from rapid_tpu_torch.models.virtual_cluster import VirtualCluster, engine_step, sync_checksum
+    from rapid_tpu_torch.ops.kernels import delivery_new_bits
+    from rapid_tpu_torch.parallel.mesh import local_tree, make_sharded_step, shard_faults, shard_state
+
+    n, cohorts = SCALE["n"], SCALE["cohorts"]
+    want = {}
+
+    def run(side, seed, capture=None):
+        vc = VirtualCluster.create(n, k=HEADLINE["k"], h=9, l=4, cohorts=cohorts, fd_threshold=3,
+                                   seed=seed, delivery_spread=HEADLINE["spread"], device=dev)
+        vc.assign_cohorts_roundrobin()
+        vc.crash(np.random.default_rng(seed).choice(n, size=n // 100, replace=False))
+        cfg, faults = vc.cfg, vc.faults
+        if side == "sharded":
+            step = make_sharded_step(cfg, mesh)
+            state, faults_in = shard_state(vc.state, mesh), shard_faults(faults, mesh)
+        else:
+            state = vc.state
+        torch.cuda.synchronize(dev)
+        delivery_new_bits.launches, reads0 = 0, _host.read.count
+        start = time.perf_counter()
+        rounds, decided = 0, False
+        with capturing(capture), syncs_only_in_reads(dev):
+            while not decided and rounds < 96:
+                if side == "sharded":
+                    state, _ = step(state, faults_in)
+                    decided = step.decided
+                else:
+                    state, _, decided, _, _ = engine_step(cfg, state, faults)
+                rounds += 1
+        torch.cuda.synchronize(dev)
+        ms = (time.perf_counter() - start) * 1e3
+        launches, reads = delivery_new_bits.launches, _host.read.count - reads0
+        state = local_tree(state)
+        members = _host.read(state.n_members)
+        check(decided and members == n - n // 100, f"{side} N={n}: {decided}, {members}")
+        check(launches == rounds, f"{side} N={n}: {launches} launches in {rounds} rounds")
+        result = (rounds, members, _host.read(sync_checksum(state, faults)),
+                  _host.read(_u32_pair(state)))
+        want.setdefault((side, seed), result)
+        out = dict(seed=seed, ms=ms, rounds=rounds, host_reads=reads,
+                   host_reads_per_round=reads / rounds, kernel_launches=launches)
+        if side == "sharded":
+            out["collectives"] = collective_summary(step.context, rounds, n, cohorts)
+        return out
+
+    runs = [run("unsharded", 7), run("sharded", 7, captured), run("sharded", 8),
+            run("unsharded", 8)]
+    for seed in (7, 8):
+        check(want[("sharded", seed)] == want[("unsharded", seed)],
+              f"N={n} seed {seed}: sharded {want[('sharded', seed)]}, "
+              f"unsharded {want[('unsharded', seed)]}")
+    return {"n": n, "cohorts": cohorts, "mesh": "(nodes=1)", "runs": runs,
+            "result": list(want[("sharded", 8)]), "launches": runs[2]["kernel_launches"]}
+
+
+def _u32_pair(state):
+    from rapid_tpu_torch import _u32
+
+    return _u32.widen(torch.stack([state.config_hi.reshape(()), state.config_lo.reshape(())]))
+
+
+def sharded_fleet(dev, captured):
+    """Phase 23 (d): the 256x1,024 fleet's 96-round wave through
+    ``make_fleet_wave`` on the one-rank ``('tenant', 'cohort', 'nodes')``
+    mesh against ``fleet_wave`` unsharded, on copies of one CPU-built
+    fleet, in turns, each wave free of synchronizing calls."""
+    from rapid_tpu_torch.ops.kernels import delivery_new_bits
+    from rapid_tpu_torch.parallel.mesh import (
+        full_pytree, make_mesh, shard_fleet_faults, shard_fleet_state,
+    )
+    from rapid_tpu_torch.tenancy import TenantFleet
+    from rapid_tpu_torch.tenancy.fleet import fleet_wave, make_fleet_wave
+
+    mesh = make_mesh(shape=(1, 1, 1))
+    b, n, n_extra, steps = FLEET["tenants"], FLEET["n"], FLEET["n_extra"], FLEET["max_steps"]
+    clusters, targets = fleet_clusters(b, n, n_extra, FLEET["cohorts"], 80_000, torch.device("cpu"))
+    cpu = TenantFleet.from_clusters(clusters)
+    want = {}
+
+    def run(side, capture=None):
+        fleet = fleet_on(cpu, dev)
+        target = torch.tensor(targets, dtype=torch.int32, device=dev)
+        min_cuts = torch.ones_like(target)
+        if side == "sharded":
+            wave = make_fleet_wave(fleet.cfg, mesh, max_cuts=4)
+            state = shard_fleet_state(fleet.state, mesh)
+            faults = shard_fleet_faults(fleet.faults, mesh)
+        torch.cuda.synchronize(dev)
+        delivery_new_bits.launches = 0
+        start = time.perf_counter()
+        with capturing(capture), syncs_only_in_reads(dev):
+            if side == "sharded":
+                state, *res = wave(state, faults, fleet.knobs, target, steps, min_cuts)
+            else:
+                state, *res, _, _ = fleet_wave(fleet.cfg, fleet.state, fleet.faults, fleet.knobs,
+                                               target, steps, 4, min_cuts)
+        torch.cuda.synchronize(dev)
+        ms = (time.perf_counter() - start) * 1e3
+        launches = delivery_new_bits.launches
+        if side == "sharded":
+            state = full_pytree(state)
+            res = [r.to_local() for r in res]
+        rounds, cuts, resolved, sizes = (r.cpu().numpy() for r in res)
+        check(resolved.all(), f"{side} fleet wave left tenants unresolved")
+        check(launches == steps, f"{side} fleet wave: {launches} launches in {steps} rounds")
+        result = (rounds.tolist(), cuts.tolist(), sizes.tolist())
+        lanes = plane_lanes(state)
+        want.setdefault(side, (result, lanes))
+        out = dict(ms=ms, view_changes=int(cuts.sum()), kernel_launches=launches)
+        if side == "sharded":
+            out["collectives"] = collective_summary(wave.context, steps, fleet.cfg.n, fleet.cfg.c,
+                                                    tenants=b)
+        return out
+
+    warm = {"unsharded": run("unsharded"), "sharded": run("sharded", captured)}
+    timed = turns({"unsharded": lambda: run("unsharded"), "sharded": lambda: run("sharded")},
+                  ["sharded", "unsharded"])
+    check(want["sharded"][0] == want["unsharded"][0], "the sharded fleet wave's results differ")
+    check_same_lanes(want["sharded"][1], want["unsharded"][1], "sharded fleet wave")
+    return {"tenants": b, "n": n, "n_slots": n + n_extra, "mesh": "(tenant=1, cohort=1, nodes=1)",
+            "rounds_per_wave": steps, "view_changes": warm["sharded"]["view_changes"],
+            "lanes_bit_exact": len(want["sharded"][1]), "warmup": warm, "timed": timed,
+            "launches": timed["sharded"][-1]["kernel_launches"]}
+
+
+def sharded_trace(dev, mesh):
+    """Phase 23 (e): ``make_sharded_step_trace`` for a few rounds of the
+    N=100,000 churn with the plane and a 64-round ring, against
+    ``engine_step`` with both unsharded: every state, telemetry and ring
+    lane and both digests."""
+    from rapid_tpu_torch.models.virtual_cluster import engine_step, telemetry_digest, trace_digest
+    from rapid_tpu_torch.ops.kernels import delivery_new_bits
+    from rapid_tpu_torch.parallel.mesh import (
+        local_tree, make_sharded_step_trace, shard_faults, shard_pytree, shard_state,
+        telemetry_shardings, trace_shardings,
+    )
+
+    rounds, trace = SHARDED["trace_rounds"], SHARDED["trace"]
+    got = {}
+
+    def run(side):
+        vc, _ = churn_cluster(HEADLINE["n"], HEADLINE["n_join"], HEADLINE["n_crash"],
+                              HEADLINE["cohorts"], 5, dev, telemetry=True, trace=trace)
+        cfg, state, faults, telem, ring = vc.cfg, vc.state, vc.faults, vc.telem, vc.trace_ring
+        if side == "sharded":
+            step = make_sharded_step_trace(cfg, mesh)
+            state, faults_in = shard_state(state, mesh), shard_faults(faults, mesh)
+            telem = shard_pytree(telem, telemetry_shardings(mesh), mesh)
+            ring = shard_pytree(ring, trace_shardings(mesh), mesh)
+        torch.cuda.synchronize(dev)
+        delivery_new_bits.launches = 0
+        start = time.perf_counter()
+        with syncs_only_in_reads(dev):
+            for _ in range(rounds):
+                if side == "sharded":
+                    state, telem, ring, _ = step(state, telem, ring, faults_in)
+                else:
+                    state, _, _, telem, ring = engine_step(cfg, state, faults, telem, ring)
+        torch.cuda.synchronize(dev)
+        ms = (time.perf_counter() - start) * 1e3
+        launches = delivery_new_bits.launches
+        check(launches == rounds, f"{side} trace rounds: {launches} launches in {rounds} rounds")
+        state, telem, ring = local_tree(state), local_tree(telem), local_tree(ring)
+        got.setdefault(side, dict(launches=launches, lanes={
+            **plane_lanes(state), **{f"telem.{k}": v for k, v in plane_lanes(telem).items()},
+            **{f"ring.{k}": v for k, v in plane_lanes(ring).items()}},
+            digests=(telemetry_digest(_one(telem)).cpu().numpy(),
+                     trace_digest(_one(ring)).cpu().numpy())))
+        return {"ms": ms}
+
+    timed = turns({"unsharded": lambda: run("unsharded"), "sharded": lambda: run("sharded")},
+                  ["unsharded", "sharded", "sharded", "unsharded"])
+    check_same_lanes(got["sharded"]["lanes"], got["unsharded"]["lanes"], "sharded trace rounds")
+    for a, b in zip(got["sharded"]["digests"], got["unsharded"]["digests"]):
+        check(np.array_equal(a, b), "sharded trace rounds: a digest differs")
+    return {"n": HEADLINE["n"], "rounds": rounds, "trace": trace, "mesh": "(cohort=1, nodes=1)",
+            "lanes_bit_exact": len(got["sharded"]["lanes"]),
+            "telemetry_digest": got["sharded"]["digests"][0].tolist()[0][:10],
+            "ms": {side: [r["ms"] for r in rs] for side, rs in timed.items()},
+            "launches": got["sharded"]["launches"]}
+
+
+def _one(tree):
+    from rapid_tpu_torch.models.state import map_lanes
+
+    return map_lanes(lambda x: x.unsqueeze(0), tree)
+
+
+def phase_sharded(dev, captured):
+    """Phase 23. ``captured``: name -> a list that receives the delivery
+    inputs of every round of the sharded churn's warm-up, the first
+    sharded 1M run and the sharded fleet wave's warm-up. Returns the
+    sharded paths' delivery launches."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from rapid_tpu_torch.parallel.mesh import make_mesh
+
+    card = smi("name,power.limit")
+    tmp = nccl_group()
+    try:
+        report = {"card": card, "offset_kernel": offset_kernel_slices(dev),
+                  "collective_us": collective_us(dev)}
+        report["churn"] = sharded_churn(dev, make_mesh(shape=(1, 1)), captured["sharded_churn"])
+        report["scale_point"] = sharded_scale_point(dev, make_mesh(),
+                                                    captured["sharded_scale_point"])
+        report["fleet_wave"] = sharded_fleet(dev, captured["sharded_fleet_wave"])
+        report["trace_rounds"] = sharded_trace(dev, make_mesh(shape=(1, 1)))
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "sharded", **report})
+    return {f"sharded_{key}": report[key]["launches"]
+            for key in ("churn", "scale_point", "fleet_wave", "trace_rounds")}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--parent", metavar="DIR",
@@ -3188,6 +3656,10 @@ def main(argv=None) -> int:
     captured.update(timed("config_resume_kernel_paths", phase_kernel_paths,
                           {"config_resume": resume_rounds}))
     del resume_rounds
+    sharded_rounds = {"sharded_churn": [], "sharded_scale_point": [], "sharded_fleet_wave": []}
+    launches.update(timed("sharded", phase_sharded, sharded_rounds))
+    captured.update(timed("sharded_kernel_paths", phase_kernel_paths, sharded_rounds))
+    del sharded_rounds
     emit({"phase": "timing", "seconds": seconds, "total_seconds": time.perf_counter() - start,
           "launch_us_after": launch})
 

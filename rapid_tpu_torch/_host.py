@@ -4,7 +4,7 @@ The JAX engine runs its loops and ``lax.cond`` gates on the device. The port
 runs them in Python, so every gate it branches on is a read that waits for
 the device. All such reads in the engine go through :func:`read`, whose
 ``count`` attribute says how many were made (``chip_smoke.py`` reports it
-per round).
+per round); :func:`upload` counts its calls the same way.
 
 The other way, a plain ``torch.from_numpy(arr).to("cuda")`` copies from
 pageable memory and synchronizes the stream: every upload would wait for
@@ -37,6 +37,7 @@ def upload(arr: np.ndarray, device: torch.device, keep: List[torch.Tensor]) -> t
     until the stream has passed the copy (the streaming driver keeps each
     wave's buffers with its completion ticket). On the CPU it is an ordinary
     copy and ``keep`` is untouched."""
+    upload.count += 1
     host = torch.from_numpy(np.ascontiguousarray(arr))
     if device.type != "cuda":
         return host.to(device, copy=True)
@@ -44,3 +45,6 @@ def upload(arr: np.ndarray, device: torch.device, keep: List[torch.Tensor]) -> t
     pinned.copy_(host)
     keep.append(pinned)
     return pinned.to(device, non_blocking=True)
+
+
+upload.count = 0

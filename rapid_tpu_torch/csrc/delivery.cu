@@ -9,6 +9,11 @@
 // rapid_tpu_torch/ops/kernels.py::delivery_new_bits_ref. A fleet of t
 // independent clusters is one call: every input gains a leading tenant axis
 // and each tenant salts its draws with its own epoch (one cluster: t = 1).
+// A shard of a sharded cluster is one call on its local columns and cohort
+// rows: the draws are salted with the global slot (slot_offset + local
+// column) and the global cohort (cohort_offset + local row), so every shard
+// draws the delays the whole cluster would. The layout and the grid stay
+// over the local n and c.
 //
 // What bounds it. Bytes: each input read once and the output written
 // once, 38.5 MB at the churn shape (t=1, c=64, k=10, n=102,500), 11.5 us
@@ -115,7 +120,8 @@ __global__ void __launch_bounds__(kThreads)
                              const uint32_t* __restrict__ epoch, uint32_t* __restrict__ out,
                              uint32_t threads, uint32_t words, int n, int k_rt, int c,
                              int32_t maxdelay, uint32_t d, uint64_t m, uint32_t permille,
-                             uint32_t lanes_per_slot) {
+                             uint32_t lanes_per_slot, uint32_t slot_offset,
+                             uint32_t cohort_offset) {
   constexpr int KR = K ? K : 32;
   // Lanes past the last thread stay for the warp's collectives; they load
   // the last thread's inputs and store nothing. (The wrapper keeps
@@ -169,7 +175,8 @@ __global__ void __launch_bounds__(kThreads)
     uint32_t* tile = staged[threadIdx.x / 32];
     const uint32_t pair = lane / lanes_per_slot, j = lane % lanes_per_slot;
     const uint32_t pairs_per_pass = 32u / lanes_per_slot;
-    const uint32_t slot_term = (slot * kSlotSalt) ^ (epoch[tenant] * kEpochSalt);
+    const uint32_t slot_term = ((slot_offset + slot) * kSlotSalt) ^ (epoch[tenant] * kEpochSalt);
+    const uint32_t salt_cohort0 = cohort_offset + cohort0;
     uint32_t owners = __ballot_sync(kAll, valid && pending != 0);
     while (owners) {
       uint32_t mine = owners;
@@ -179,7 +186,7 @@ __global__ void __launch_bounds__(kThreads)
       const uint32_t p = __shfl_sync(kAll, pending, src) & (mine ? kAll : 0u);
       const uint32_t p_any = __reduce_or_sync(kAll, p);
       const uint32_t base =
-          ((__shfl_sync(kAll, cohort0, src) + j) * kCohortSalt) ^ __shfl_sync(kAll, slot_term, src);
+          ((__shfl_sync(kAll, salt_cohort0, src) + j) * kCohortSalt) ^ __shfl_sync(kAll, slot_term, src);
       uint32_t bits = 0;
 #pragma unroll
       for (int r = 0; r < KR; ++r) {
@@ -219,7 +226,7 @@ __global__ void __launch_bounds__(kThreads)
 template <int K, int MODE>
 void launch(const uint32_t* b, const int32_t* a, const uint32_t* e, uint32_t* o, int t, int n,
             int k, int c, int spread, int permille, uint32_t d, unsigned long long m,
-            cudaStream_t s) {
+            int slot_offset, int cohort_offset, cudaStream_t s) {
   const uint32_t words = (static_cast<uint32_t>(c) + 31u) / 32u;
   const uint32_t threads = static_cast<uint32_t>(t) * words * static_cast<uint32_t>(n);
   const dim3 grid((threads + kThreads - 1) / kThreads);
@@ -227,7 +234,7 @@ void launch(const uint32_t* b, const int32_t* a, const uint32_t* e, uint32_t* o,
   while (lanes_per_slot < static_cast<uint32_t>(c < 32 ? c : 32)) lanes_per_slot <<= 1;
   delivery_new_bits_kernel<K, MODE><<<grid, kThreads, 0, s>>>(
       b, a, e, o, threads, words, n, k, c, spread, d, m, static_cast<uint32_t>(permille),
-      lanes_per_slot);
+      lanes_per_slot, static_cast<uint32_t>(slot_offset), static_cast<uint32_t>(cohort_offset));
 }
 
 }  // namespace
@@ -236,22 +243,26 @@ void launch(const uint32_t* b, const int32_t* a, const uint32_t* e, uint32_t* o,
 // epoch: [t] uint32 (device memory, so the caller never reads it back);
 // out: [t, c, n] uint32. m: ceil(2^64 / d) mod 2^64 for the launch's
 // divisor d (spread + 1 when permille >= 1000, else spread; unused when
-// spread == 0). Launches on `stream` and returns cudaGetLastError().
+// spread == 0). slot_offset / cohort_offset: the global slot of local column
+// 0 and the global cohort of local row 0 (0 and 0 for a whole cluster).
+// Launches on `stream` and returns cudaGetLastError().
 extern "C" int rapid_delivery_new_bits(const void* blocked, const void* age, const void* epoch,
                                        void* out, int t, int n, int k, int c, int spread,
-                                       int permille, unsigned long long m, void* stream) {
+                                       int permille, int slot_offset, int cohort_offset,
+                                       unsigned long long m, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto b = static_cast<const uint32_t*>(blocked);
   auto a = static_cast<const int32_t*>(age);
   auto e = static_cast<const uint32_t*>(epoch);
   auto o = static_cast<uint32_t*>(out);
   const uint32_t sp = static_cast<uint32_t>(spread);
+  const int so = slot_offset, co = cohort_offset;
   if (spread == 0) {
-    (k == 10 ? launch<10, 0> : launch<0, 0>)(b, a, e, o, t, n, k, c, spread, permille, 1u, m, s);
+    (k == 10 ? launch<10, 0> : launch<0, 0>)(b, a, e, o, t, n, k, c, spread, permille, 1u, m, so, co, s);
   } else if (permille >= 1000) {
-    (k == 10 ? launch<10, 1> : launch<0, 1>)(b, a, e, o, t, n, k, c, spread, permille, sp + 1u, m, s);
+    (k == 10 ? launch<10, 1> : launch<0, 1>)(b, a, e, o, t, n, k, c, spread, permille, sp + 1u, m, so, co, s);
   } else {
-    (k == 10 ? launch<10, 2> : launch<0, 2>)(b, a, e, o, t, n, k, c, spread, permille, sp, m, s);
+    (k == 10 ? launch<10, 2> : launch<0, 2>)(b, a, e, o, t, n, k, c, spread, permille, sp, m, so, co, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -54,6 +54,7 @@ kernel still emits uint32 words; they are narrowed into the report lane.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Optional, Sequence, Tuple
 
@@ -93,6 +94,9 @@ from rapid_tpu_torch.utils.dispatch import DispatchSeam
 from rapid_tpu_torch.utils.health import NodeHealth
 from rapid_tpu_torch.utils.metrics import Metrics
 
+# The mesh axes a sharded round communicates over (``parallel/mesh.py``).
+_NODES, _COHORT = ("nodes",), ("cohort",)
+
 
 def cohort_words(c: int) -> int:
     """uint32 words needed to carry one bit per receiver cohort."""
@@ -119,29 +123,63 @@ def _take(lane: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(lane, 1, at.reshape(at.shape[0], -1)).view(at.shape)
 
 
-def _edge_masks(cfg: EngineConfig, state: EngineState, faults: FaultInputs):
+def _local(cfg: EngineConfig, ctx):
+    """``(n, c, slot_offset, cohort_offset)`` of the lanes the round body
+    holds: the whole cluster's without a collective context, this rank's
+    shard with one (:mod:`rapid_tpu_torch.parallel.collectives`)."""
+    if ctx is None:
+        return cfg.n, cfg.c, 0, 0
+    return ctx.n_local, ctx.c_local, ctx.slot_offset, ctx.cohort_offset
+
+
+def _gate(ctx):
+    """The context of a gated branch (the JAX engine's ``lax.cond``):
+    collectives issued in it are logged at a gated site."""
+    return contextlib.nullcontext() if ctx is None else ctx.gate()
+
+
+def _loop(ctx):
+    """The context of one iteration of a driver's round loop."""
+    return contextlib.nullcontext() if ctx is None else ctx.loop()
+
+
+def _edge_masks(cfg: EngineConfig, state: EngineState, faults: FaultInputs, ctx=None):
     """Per-edge observer masks: ``(observer_active[t, n, k],
     blocked_rows[t, w*k, n])``. ``blocked_rows`` packs "cohort c cannot
     hear the observer of edge (subject, ring)" over cohorts: row ``wi*k +
     ring``, bit j = cohort ``32*wi + j``. Fixed between view changes, so
-    loops compute it once per configuration."""
-    n, k, c = cfg.n, cfg.k, cfg.c
+    loops compute it once per configuration.
+
+    Sharded (``ctx``): observers are global slots on any shard, so the
+    packed words of this rank's cohorts and the active lane are gathered
+    over ``'nodes'`` once (the prologue gather the JAX package's XLA hoists
+    out of the loop); the rows pack this rank's cohorts."""
+    n, k = cfg.n, cfg.k
+    n_l, c_l, _, _ = _local(cfg, ctx)
     t = state.alive.shape[0]
-    w = cohort_words(c)
+    w = cohort_words(c_l)
     dev = state.alive.device
     obs = state.obs_idx  # [t, k, n]: observer of (ring, subject)
     at = obs.clamp(0, n - 1).to(torch.int64)
     active = state.alive & ~faults.crashed
-    observed = (obs >= 0) & torch.gather(active, 1, at.view(t, k * n)).view(t, k, n)
-    observer_active = observed.transpose(1, 2).contiguous()  # [t, n, k]
 
-    shifts = torch.arange(c, dtype=torch.int64, device=dev) % 32
+    shifts = torch.arange(c_l, dtype=torch.int64, device=dev) % 32
     cohort_bits = faults.rx_block.to(torch.int64) << shifts[:, None]  # [t, c, n]
     words = _u32.narrow(
         torch.stack([cohort_bits[:, 32 * wi : 32 * (wi + 1)].sum(1) for wi in range(w)], 1)
     )  # [t, w, n]
-    blocked_rows = torch.gather(words, 2, at.view(t, 1, k * n).expand(t, w, k * n))
-    return observer_active, blocked_rows.view(t, w * k, n)
+    if ctx is not None:
+        # Priced as the unsharded rows (the whole cluster's words and the
+        # active lane), so the payload class does not depend on the mesh.
+        rows = ctx.gather(
+            torch.cat([words, active[:, None].to(torch.int32)], 1), _NODES[0], "edge masks",
+            logical_bytes=4 * (cohort_words(cfg.c) + 1) * n * t,
+        )
+        words, active = rows[:, :w], rows[:, w] != 0
+    observed = (obs >= 0) & torch.gather(active, 1, at.view(t, k * n_l)).view(t, k, n_l)
+    observer_active = observed.transpose(1, 2).contiguous()  # [t, n, k]
+    blocked_rows = torch.gather(words, 2, at.view(t, 1, k * n_l).expand(t, w, k * n_l))
+    return observer_active, blocked_rows.view(t, w * k, n_l)
 
 
 def _fd_tick(cfg: EngineConfig, state: EngineState, faults: FaultInputs, observer_active):
@@ -167,16 +205,19 @@ def _fd_tick(cfg: EngineConfig, state: EngineState, faults: FaultInputs, observe
     return fd_count, fd_hist, state.fd_fired | fire, fire
 
 
-def _deliver_alerts(cfg: EngineConfig, state: EngineState, fire_round, blocked_rows):
+def _deliver_alerts(cfg: EngineConfig, state: EngineState, fire_round, blocked_rows, ctx=None):
     """Per-cohort delivered alert bitmasks ``[t, c, n]`` at the report
     lane's dtype: one launch of the delivery kernel for every tenant on a
     card, its plain version on the CPU. Ages are int32 whatever the fire
     round's dtype (an unfired edge's sentinel age stays negative), and the
-    kernel's uint32 words are narrowed on store."""
+    kernel's uint32 words are narrowed on store. Sharded, the launch covers
+    this rank's shard, its draws salted by global slot and cohort."""
+    _, c_l, slot_offset, cohort_offset = _local(cfg, ctx)
+    offsets = () if ctx is None else (slot_offset, cohort_offset)
     age_kn = (state.round_idx[:, None, None] - fire_round.transpose(1, 2).to(torch.int32)).contiguous()
     words = delivery_new_bits(
-        blocked_rows, age_kn, state.config_epoch, cfg.k, cfg.c,
-        cfg.delivery_spread, cfg.delivery_prob_permille,
+        blocked_rows, age_kn, state.config_epoch, cfg.k, c_l,
+        cfg.delivery_spread, cfg.delivery_prob_permille, *offsets,
     )
     return _narrow.keep_bits(words, state.report_bits.dtype)
 
@@ -186,16 +227,26 @@ def _rotation_seed_w(epoch_w: torch.Tensor, j: int) -> torch.Tensor:
     return _u32.add(_u32.mul(epoch_w, 0x9E3779B1), (0x5BD1E995 * (j + 1)) & _u32.MASK)
 
 
-def _classic_attempt(cfg: EngineConfig, state: EngineState, faults: FaultInputs, announced, cp):
+def _classic_attempt(cfg: EngineConfig, state: EngineState, faults: FaultInputs, announced, cp,
+                     ctx=None):
     """One classic-Paxos attempt per tenant with
     ``cfg.concurrent_coordinators`` rank-ordered racers
     (Paxos.java:93-238). Returns the acceptor lanes, the ``[t]`` decided
     flags and the winning cohorts (``[t]`` int32, -1 if none). Every value
     stays defined for a tenant whose attempt is not due (no active member,
-    nothing announced), so a fleet can compute it for all and select."""
+    nothing announced), so a fleet can compute it for all and select.
+    ``announced`` is the whole ``[t, c]`` lane.
+
+    Sharded (``ctx``): the active ranks continue across the node shards
+    (one gather of the shards' counts), each coordinator is the first hit
+    of its rank on any shard (a min over global slots), and its column and
+    cohort row of the receive blocks come from the shards that hold them;
+    every count and maximum over the acceptors is reduced over
+    ``'nodes'``."""
     cp_rnd_r, cp_rnd_i, cp_vrnd_r, cp_vrnd_i, cp_vval_src = cp
-    t, n = state.alive.shape
-    c = cfg.c
+    t, n_l = state.alive.shape
+    n, c = cfg.n, cfg.c
+    _, c_l, slot_offset, cohort_offset = _local(cfg, ctx)
     dev = state.alive.device
     active = state.alive & ~faults.crashed
     n_active = active.sum(-1, dtype=torch.int32)
@@ -203,16 +254,30 @@ def _classic_attempt(cfg: EngineConfig, state: EngineState, faults: FaultInputs,
     round_num = (2 + state.classic_epoch)[:, None]
     cohort_ids = torch.arange(c, dtype=torch.int32, device=dev)
     active_rank = torch.cumsum(active, -1, dtype=torch.int32)
+    if ctx is not None:
+        counts = ctx.gather(n_active[:, None], _NODES[0], "classic active counts")  # [t, dn]
+        n_active = counts.sum(-1, dtype=torch.int32)
+        before = counts[:, : ctx.index.get(_NODES[0], 0)].sum(-1, dtype=torch.int32)
+        active_rank = active_rank + before[:, None]
 
     def rank_gt(ar, ai, br, bi):
         return (ar > br) | ((ar == br) & (ai > bi))
 
-    coords = []
+    hits = []
     epoch_w = _u32.widen(state.classic_epoch.to(torch.int32))
     for j in range(cfg.concurrent_coordinators):
         pick = _u32.mix32_w(_rotation_seed_w(epoch_w, j))
         target = torch.where(n_active > 0, pick % n_active.clamp(min=1).to(torch.int64) + 1, 1)
-        coords.append(torch.argmax((active & (active_rank == target[:, None])).to(torch.int32), -1))
+        hits.append(active & (active_rank == target[:, None]))
+    coords = [torch.argmax(hit.to(torch.int32), -1) for hit in hits]
+    if ctx is not None:
+        # The lowest global slot holding the rank (argmax's first hit; slot
+        # 0, as argmax gives, where no shard holds it).
+        offers = torch.stack([
+            torch.where(hit.any(-1), coord + slot_offset, n) for hit, coord in zip(hits, coords)
+        ])
+        first = ctx.min(offers, _NODES, "classic coordinators")
+        coords = list(torch.where(first >= n, 0, first))
 
     valid = []
     for j, coord in enumerate(coords):
@@ -223,24 +288,57 @@ def _classic_attempt(cfg: EngineConfig, state: EngineState, faults: FaultInputs,
 
     per = []
     for coord, v in zip(coords, valid):
-        coord_cohort = _take(state.cohort_of, coord)  # [t]
-        # rx_block[cohort_of[i], coord] and rx_block[coord_cohort, i], per tenant.
-        coord_col = coord[:, None, None].expand(t, c, 1)
-        rx_from_coord = torch.gather(faults.rx_block, 2, coord_col)[:, :, 0]  # [t, c]
+        if ctx is None:
+            coord_cohort = _take(state.cohort_of, coord)  # [t]
+            # rx_block[cohort_of[i], coord] and rx_block[coord_cohort, i], per tenant.
+            coord_col = coord[:, None, None].expand(t, c, 1)
+            rx_from_coord = torch.gather(faults.rx_block, 2, coord_col)[:, :, 0]  # [t, c]
+            coord_row = coord_cohort.clamp(0, c - 1).to(torch.int64)[:, None, None].expand(t, 1, n)
+            coord_blocked = torch.gather(faults.rx_block, 1, coord_row)[:, 0]
+        else:
+            # The coordinator's cohort and receive column from its node
+            # shard, its cohort's receive row from that cohort's shard.
+            local = coord - slot_offset
+            mine = (local >= 0) & (local < n_l)
+            at = local.clamp(0, n_l - 1)
+            col = torch.gather(faults.rx_block, 2, at[:, None, None].expand(t, c_l, 1))[:, :, 0]
+            column = torch.cat([
+                torch.where(mine, _take(state.cohort_of, at).to(torch.int32), -1)[:, None],
+                (col & mine[:, None]).to(torch.int32),
+            ], 1)
+            column = ctx.max(column, _NODES, "classic coordinator column", sharded=_COHORT)
+            coord_cohort = column[:, 0]
+            rx_from_coord = ctx.assemble_cohorts(column[:, 1:] != 0, "classic coordinator column")
+            row_at = coord_cohort.clamp(0, c - 1).to(torch.int64) - cohort_offset
+            holds = (row_at >= 0) & (row_at < c_l)
+            row_at = row_at.clamp(0, c_l - 1)[:, None, None].expand(t, 1, n_l)
+            coord_blocked = torch.gather(faults.rx_block, 1, row_at)[:, 0] & holds[:, None]
+            coord_blocked = ctx.max(coord_blocked, _COHORT, "classic coordinator row",
+                                    sharded=_NODES)
         hears_coord = active & v & ~_take(rx_from_coord, state.cohort_of)
-        coord_row = coord_cohort.clamp(0, c - 1).to(torch.int64)[:, None, None].expand(t, 1, n)
-        coord_hears = active & v & ~torch.gather(faults.rx_block, 1, coord_row)[:, 0]
+        coord_hears = active & v & ~coord_blocked
         coord_i = coord[:, None]
         promise = hears_coord & rank_gt(round_num, coord_i, cp_rnd_r, cp_rnd_i)
         q1 = promise & coord_hears
-        phase1_ok = q1.sum(-1, dtype=torch.int32) >= majority
         voters = q1 & (cp_vval_src >= 0)
-        mv_r = torch.where(voters, cp_vrnd_r, -1).amax(-1)[:, None]
-        mv_i = torch.where(voters & (cp_vrnd_r == mv_r), cp_vrnd_i, -1).amax(-1)[:, None]
+        mv_r = torch.where(voters, cp_vrnd_r, -1).amax(-1)
+        if ctx is not None:
+            mv_r = ctx.max(mv_r, _NODES, "classic highest vote round")
+        mv_r = mv_r[:, None]
+        mv_i = torch.where(voters & (cp_vrnd_r == mv_r), cp_vrnd_i, -1).amax(-1)
+        if ctx is not None:
+            mv_i = ctx.max(mv_i, _NODES, "classic highest vote rank")
+        mv_i = mv_i[:, None]
         at_max = voters & (cp_vrnd_r == mv_r) & (cp_vrnd_i == mv_i)
         max_counts = (at_max[:, None, :] & (cp_vval_src[:, None, :] == cohort_ids[:, None])).sum(
             -1, dtype=torch.int32
         )  # [t, c]
+        q1_count = q1.sum(-1, dtype=torch.int32)
+        if ctx is not None:
+            both = ctx.sum(torch.cat([max_counts, q1_count[:, None]], 1), _NODES,
+                           "classic phase-1 counts")
+            max_counts, q1_count = both[:, :-1], both[:, -1]
+        phase1_ok = q1_count >= majority
         chosen = torch.where(
             (max_counts > 0).any(-1),
             torch.argmax(max_counts, -1),
@@ -258,13 +356,15 @@ def _classic_attempt(cfg: EngineConfig, state: EngineState, faults: FaultInputs,
     acc_r, acc_i, acc_src = cp_vrnd_r, cp_vrnd_i, cp_vval_src
     fb_decided = torch.zeros((t,), dtype=torch.bool, device=dev)
     chosen_winner = torch.full((t,), -1, dtype=torch.int32, device=dev)
-    any_touch = torch.zeros((t, n), dtype=torch.bool, device=dev)
+    any_touch = torch.zeros((t, n_l), dtype=torch.bool, device=dev)
     for coord_i, hears_coord, promise, phase1_ok, chosen in per:
         proposing = phase1_ok & (chosen >= 0)
         can_accept = (
             proposing[:, None] & hears_coord & (rnd1_r == round_num) & (rnd1_i == coord_i)
         )
         accept_count = can_accept.sum(-1, dtype=torch.int32)
+        if ctx is not None:
+            accept_count = ctx.sum(accept_count, _NODES, "classic accept count")
         won = proposing & (accept_count >= majority)
         fb_decided = fb_decided | won
         chosen_winner = torch.where(won, chosen, chosen_winner)
@@ -292,6 +392,7 @@ def _compute_round(
     select: bool = False,
     telem: Optional[TelemetryLanes] = None,
     trace: Optional[TraceRing] = None,
+    ctx=None,
 ):
     """One protocol round for every tenant of ``[t, ...]`` lanes, WITHOUT
     the view change: returns ``(state, decided, winner_mask, events, telem,
@@ -305,12 +406,22 @@ def _compute_round(
     ``decided`` is a host bool. ``select=True`` (a fleet): both are
     computed for every tenant (the attempt kept where it is due), no read
     is made, and ``decided`` is the ``[t]`` bool tensor. The planes add no
-    read either way."""
+    read either way.
+
+    ``ctx`` (a :class:`~rapid_tpu_torch.parallel.collectives.CollectiveContext`)
+    runs the round on this rank's shard of a mesh: every reduction over a
+    sharded axis becomes an all-reduce on that axis's group, the ``[c]``
+    proposal lanes are assembled whole for the votes, and every host branch
+    reads a value all ranks hold, so all ranks take it together. The
+    results are the unsharded round's, bit for bit, shard by shard."""
     c = cfg.c
+    _, c_l, _, cohort_offset = _local(cfg, ctx)
     t = state.alive.shape[0]
     dev = state.alive.device
+    if ctx is not None:
+        ctx.begin_round()
     if edge_masks is None:
-        edge_masks = _edge_masks(cfg, state, faults)
+        edge_masks = _edge_masks(cfg, state, faults, ctx)
     observer_active, blocked_rows = edge_masks
 
     # 1. Failure-detector tick.
@@ -323,14 +434,19 @@ def _compute_round(
     # 2. Delivery, zeroed once every fired alert has matured (the JAX
     #    version skips the work with lax.cond; the select gives the same
     #    bits, since matured alerts are already merged into report_bits).
-    last_mature = (
-        torch.where(fd_fired, fire_round, -1).flatten(1).amax(-1).to(torch.int32)
-        + cfg.delivery_spread
-    )
-    need_delivery = fd_fired.flatten(1).any(-1) & (state.round_idx <= last_mature)
-    delivered = _deliver_alerts(cfg, state, fire_round, blocked_rows)
+    last_fired = torch.where(fd_fired, fire_round, -1).flatten(1).amax(-1).to(torch.int32)
+    any_fired = fd_fired.flatten(1).any(-1)
+    if ctx is not None:
+        alerts_emitted = ctx.sum(alerts_emitted, _NODES, "alerts emitted")
+        gate = ctx.max(torch.stack([last_fired, any_fired.to(torch.int32)]), _NODES,
+                       "delivery gate")
+        last_fired, any_fired = gate[0], gate[1] != 0
+    need_delivery = any_fired & (state.round_idx <= last_fired + cfg.delivery_spread)
+    delivered = _deliver_alerts(cfg, state, fire_round, blocked_rows, ctx)
     new_bits = torch.where(need_delivery[:, None, None], delivered, 0)
     heard_down = ((new_bits != 0) & state.alive[:, None, :]).any(-1)
+    if ctx is not None:
+        heard_down = ctx.max(heard_down, _NODES, "heard down", sharded=_COHORT)
 
     # 3. Cut detection per cohort.
     subject_mask = state.alive | state.join_pending
@@ -338,26 +454,35 @@ def _compute_round(
         cohort_watermark_pass(
             state.report_bits, new_bits, state.seen_down, state.released, state.announced,
             subject_mask, state.inval_obs, heard_down, cfg.h, cfg.l, cfg.k,
-            select=select,
+            select=select, ctx=ctx,
         )
     )
     prop_hi_new, prop_lo_new = masked_set_hash(
-        state.id_hi[:, None, :], state.id_lo[:, None, :], prop_masks
+        state.id_hi[:, None, :], state.id_lo[:, None, :], prop_masks, ctx, _COHORT
     )
     prop_hi = torch.where(proposed_now, prop_hi_new, state.prop_hi)
     prop_lo = torch.where(proposed_now, prop_lo_new, state.prop_lo)
     prop_mask = torch.where(proposed_now[:, :, None], prop_masks, state.prop_mask)
 
-    # 4. Fast-round votes, once per member per configuration.
+    # 4. Fast-round votes, once per member per configuration. Every member
+    #    reads its cohort's proposal, so a sharded round assembles the whole
+    #    [c] lanes first.
+    all_announced, all_prop_hi, all_prop_lo = announced, prop_hi, prop_lo
+    if ctx is not None:
+        lanes = ctx.assemble_cohorts(
+            torch.stack([announced.to(torch.int32), prop_hi, prop_lo]), "proposal lanes"
+        )
+        all_announced, all_prop_hi, all_prop_lo = lanes[0] != 0, lanes[1], lanes[2]
     cohort = state.cohort_of.clamp(0, c - 1).to(torch.int64)  # JAX clamps its gathers
-    can_vote = state.alive & ~faults.crashed & ~state.vote_valid & announced.gather(1, cohort)
-    vote_hi = torch.where(can_vote, prop_hi.gather(1, cohort), state.vote_hi)
-    vote_lo = torch.where(can_vote, prop_lo.gather(1, cohort), state.vote_lo)
+    can_vote = state.alive & ~faults.crashed & ~state.vote_valid & all_announced.gather(1, cohort)
+    vote_hi = torch.where(can_vote, all_prop_hi.gather(1, cohort), state.vote_hi)
+    vote_lo = torch.where(can_vote, all_prop_lo.gather(1, cohort), state.vote_lo)
     vote_valid = state.vote_valid | can_vote
 
     # 5. Quorum tally.
     tally = tally_candidates(
-        vote_hi, vote_lo, vote_valid, prop_hi, prop_lo, announced, state.n_members
+        vote_hi, vote_lo, vote_valid, all_prop_hi, all_prop_lo, all_announced, state.n_members,
+        ctx=ctx,
     )
     fast_decided = tally.decided
 
@@ -370,21 +495,27 @@ def _compute_round(
         torch.where(prime, 1, state.cp_vrnd_i),
         torch.where(prime, state.cohort_of, state.cp_vval_src),
     )
-    stalled = announced.any(-1) & ~fast_decided
+    stalled = all_announced.any(-1) & ~fast_decided
     rounds_undecided = torch.where(stalled, state.rounds_undecided + 1, state.rounds_undecided)
     fallback_due = (rounds_undecided >= cfg.fallback_rounds) & stalled
 
     # 5b. Classic fallback: a host branch for the single cluster (it is rare
     #     and costs a few [c, n] passes), a per-tenant select in a fleet.
     if select:
-        *attempt, fb_decided, chosen = _classic_attempt(cfg, state, faults, announced, cp)
+        with _gate(ctx):
+            *attempt, fb_decided, chosen = _classic_attempt(
+                cfg, state, faults, all_announced, cp, ctx
+            )
         cp = tuple(torch.where(fallback_due[:, None], a, b) for a, b in zip(attempt, cp))
         fb_decided = fallback_due & fb_decided
         chosen = torch.where(fallback_due, chosen, -1)
     else:
         fast_host, fallback_host = _host.read(torch.stack([fast_decided, fallback_due]).view(-1))
         if fallback_host:
-            *cp, fb_decided, chosen = _classic_attempt(cfg, state, faults, announced, cp)
+            with _gate(ctx):
+                *cp, fb_decided, chosen = _classic_attempt(
+                    cfg, state, faults, all_announced, cp, ctx
+                )
         else:
             fb_decided = torch.zeros((t,), dtype=torch.bool, device=dev)
             chosen = torch.full((t,), -1, dtype=torch.int32, device=dev)
@@ -400,18 +531,22 @@ def _compute_round(
         fast_decided,
         torch.argmax(
             (
-                announced
-                & (prop_hi == tally.winner_hi[:, None])
-                & (prop_lo == tally.winner_lo[:, None])
+                all_announced
+                & (all_prop_hi == tally.winner_hi[:, None])
+                & (all_prop_lo == tally.winner_lo[:, None])
             ).to(torch.int32),
             -1,
         ),
         chosen.clamp(min=0),
     )
-    cohort_ids = torch.arange(c, dtype=torch.int64, device=dev)
-    winner_mask = decided[:, None] & (
-        prop_mask & (cohort_ids == winner_cohort[:, None])[:, :, None]
-    ).any(1)
+    cohort_ids = torch.arange(c_l, dtype=torch.int64, device=dev) + cohort_offset
+    in_winner = (prop_mask & (cohort_ids == winner_cohort[:, None])[:, :, None]).any(1)
+    if ctx is not None and (select or decided_out):
+        # The winning cohort's row lies on one cohort shard (an undecided
+        # single cluster's mask is all false whatever the rows hold).
+        with _gate(ctx):
+            in_winner = ctx.max(in_winner, _COHORT, "winner mask", sharded=_NODES)
+    winner_mask = decided[:, None] & in_winner
 
     round_state = state._replace(
         fd_count=fd_count,
@@ -485,12 +620,18 @@ def _compute_round(
     def put(lane, value):
         return torch.where(at, value[:, None], lane)
 
+    active_count = active.flatten(1).sum(-1, dtype=torch.int32)
+    proposals = proposed_now.sum(-1, dtype=torch.int32)
+    if ctx is not None:
+        counts = ctx.sum(torch.stack([ctx.sum(active_count, _NODES, "trace active"), proposals]),
+                         _COHORT, "trace counts")
+        active_count, proposals = counts[0], counts[1]
     trace = TraceRing(
         tr_round=put(trace.tr_round, state.round_idx),
         tr_epoch=put(trace.tr_epoch, state.config_epoch),
-        tr_active=put(trace.tr_active, active.flatten(1).sum(-1, dtype=torch.int32)),
+        tr_active=put(trace.tr_active, active_count),
         tr_alerts=put(trace.tr_alerts, alerts_emitted),
-        tr_proposals=put(trace.tr_proposals, proposed_now.sum(-1, dtype=torch.int32)),
+        tr_proposals=put(trace.tr_proposals, proposals),
         tr_tally=put(trace.tr_tally, tally_at_decision),
         tr_path=put(trace.tr_path, fb_decided.to(torch.int32) * 2 + fast_decided),
         tr_conflict=put(trace.tr_conflict, stalled.to(torch.int32)),
@@ -501,18 +642,26 @@ def _compute_round(
     return round_state, decided_out, winner_mask, events, telem, trace
 
 
-def apply_view_change_impl(cfg: EngineConfig, state: EngineState, winner_mask) -> EngineState:
+def apply_view_change_impl(cfg: EngineConfig, state: EngineState, winner_mask,
+                           ctx=None) -> EngineState:
     """Commit each tenant's decided cut (``winner_mask [t, n]``): flip
     membership, re-derive ring topology, reset the per-configuration
     state, every lane at ``cfg``'s policy dtype. Joiners not in the cut
-    stay pending with their fired UP edges re-stamped to round 0."""
-    n, k, c = cfg.n, cfg.k, cfg.c
+    stay pending with their fired UP edges re-stamped to round 0. Sharded
+    (``ctx``), the rings are re-derived across the node shards
+    (:func:`~rapid_tpu_torch.ops.rings.ring_topology_from_perm`) and the
+    membership hash and count are reduced over ``'nodes'``."""
+    n, c = _local(cfg, ctx)[:2]  # this rank's slots and cohorts
+    k = cfg.k
     t = state.alive.shape[0]
     dev = state.alive.device
     st = lane_storage(cfg)
     alive2 = state.alive ^ winner_mask
-    topo = ring_topology_from_perm(state.ring_perm, alive2)
-    config_hi, config_lo = masked_set_hash(state.id_hi, state.id_lo, alive2)
+    topo = ring_topology_from_perm(state.ring_perm, alive2, ctx)
+    config_hi, config_lo = masked_set_hash(state.id_hi, state.id_lo, alive2, ctx)
+    n_members = alive2.sum(-1, dtype=torch.int32)
+    if ctx is not None:
+        n_members = ctx.sum(n_members, _NODES, "view-change membership count")
     still_pending = state.join_pending & ~winner_mask
     fd_fired2 = state.fd_fired & still_pending[:, :, None]
 
@@ -529,7 +678,7 @@ def apply_view_change_impl(cfg: EngineConfig, state: EngineState, winner_mask) -
         config_epoch=state.config_epoch + 1,
         config_hi=config_hi,
         config_lo=config_lo,
-        n_members=alive2.sum(-1, dtype=torch.int32),
+        n_members=n_members,
         fd_count=zeros("fd_count", (n, k)),
         fd_hist=zeros("fd_hist", (n, k)),
         fd_fired=fd_fired2,
@@ -562,16 +711,19 @@ def engine_step(
     faults: FaultInputs,
     telem: Optional[TelemetryLanes] = None,
     trace: Optional[TraceRing] = None,
+    ctx=None,
 ):
     """One cluster's full round including the view change when it decided.
     Returns (state, events, decided, telem, trace); the plane lanes are
     ``None`` where none were given. Covers the JAX package's
-    ``engine_step``, ``engine_step_telem`` and ``engine_step_trace``."""
+    ``engine_step``, ``engine_step_telem`` and ``engine_step_trace``, and
+    with ``ctx`` their sharded twins (``parallel/mesh.py``)."""
     round_state, decided, winner_mask, events, telem, trace = _compute_round(
-        cfg, _one(state), _one(faults), telem=_one(telem), trace=_one(trace)
+        cfg, _one(state), _one(faults), telem=_one(telem), trace=_one(trace), ctx=ctx
     )
     if decided:
-        round_state = apply_view_change_impl(cfg, round_state, winner_mask)
+        with _gate(ctx):
+            round_state = apply_view_change_impl(cfg, round_state, winner_mask, ctx)
     return _only(round_state), _only(events), decided, _only(telem), _only(trace)
 
 
@@ -605,22 +757,25 @@ def run_to_decision(
     max_steps: int,
     telem: Optional[TelemetryLanes] = None,
     trace: Optional[TraceRing] = None,
+    ctx=None,
 ):
     """One cluster's rounds until a view change commits or ``max_steps`` run
     out. Returns (state, steps, decided, winner_mask, telem, trace). Covers
     the JAX package's ``run_to_decision`` and its ``_telem`` / ``_trace``
-    twins."""
+    twins, and with ``ctx`` a sharded run of this rank's shard."""
     state, faults, telem, trace = _one(state), _one(faults), _one(telem), _one(trace)
-    edge_masks = _edge_masks(cfg, state, faults)
+    edge_masks = _edge_masks(cfg, state, faults, ctx)
     steps, decided = 0, False
-    winner = torch.zeros((1, cfg.n), dtype=torch.bool, device=state.alive.device)
+    winner = torch.zeros((1, _local(cfg, ctx)[0]), dtype=torch.bool, device=state.alive.device)
     while not decided and steps < max_steps:
-        state, decided, winner, _, telem, trace = _compute_round(
-            cfg, state, faults, edge_masks, telem=telem, trace=trace
-        )
+        with _loop(ctx):
+            state, decided, winner, _, telem, trace = _compute_round(
+                cfg, state, faults, edge_masks, telem=telem, trace=trace, ctx=ctx
+            )
         steps += 1
     if decided:
-        state = apply_view_change_impl(cfg, state, winner)
+        with _gate(ctx):
+            state = apply_view_change_impl(cfg, state, winner, ctx)
     return _only(state), steps, decided, winner[0], _only(telem), _only(trace)
 
 
@@ -634,6 +789,7 @@ def run_until_membership(
     min_cuts: int,
     telem: Optional[TelemetryLanes] = None,
     trace: Optional[TraceRing] = None,
+    ctx=None,
 ):
     """One cluster's rounds through several view changes until the
     membership reaches ``target`` with at least ``min_cuts`` committed
@@ -642,9 +798,11 @@ def run_until_membership(
     trace) where ``sizes[i]`` is the membership after the i-th cut. The
     plane lanes accumulate across the view changes. Covers the JAX
     package's ``run_until_membership`` and its ``_telem`` / ``_trace``
-    twins."""
+    twins, and with ``ctx`` a sharded run of this rank's shard (the view
+    change and the edge masks' rebuild gated inside the loop, as in the
+    JAX wave)."""
     state, faults, telem, trace = _one(state), _one(faults), _one(telem), _one(trace)
-    edge_masks = _edge_masks(cfg, state, faults)
+    edge_masks = _edge_masks(cfg, state, faults, ctx)
     members = _host.read(state.n_members)[0]
     steps, cuts, stalled, sizes = 0, 0, False, []
     while not (
@@ -655,13 +813,15 @@ def run_until_membership(
     ):
         decided = False
         while not decided and steps < max_steps:
-            state, decided, winner, _, telem, trace = _compute_round(
-                cfg, state, faults, edge_masks, telem=telem, trace=trace
-            )
+            with _loop(ctx):
+                state, decided, winner, _, telem, trace = _compute_round(
+                    cfg, state, faults, edge_masks, telem=telem, trace=trace, ctx=ctx
+                )
             steps += 1
         if decided:
-            state = apply_view_change_impl(cfg, state, winner)
-            edge_masks = _edge_masks(cfg, state, faults)
+            with _loop(ctx), _gate(ctx):
+                state = apply_view_change_impl(cfg, state, winner, ctx)
+                edge_masks = _edge_masks(cfg, state, faults, ctx)
             members = _host.read(state.n_members)[0]
             sizes.append(members)
             cuts += 1

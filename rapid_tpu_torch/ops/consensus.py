@@ -40,13 +40,16 @@ def tally_candidates(
     cand_lo: torch.Tensor,
     cand_valid: torch.Tensor,
     n_members: torch.Tensor,
+    ctx=None,
 ) -> TallyResult:
     """Count identical votes (``[..., N]`` stored uint32 lanes + validity)
     against C candidate proposals (``[..., C]``), with ``n_members`` over
     the leading batch axes (a fleet's ``[t]``: every tenant takes its own
     quorum). The winner is the lowest-index candidate among those with the
     most votes, selected as a one-hot mask: the same tie-break as
-    ``argmax``."""
+    ``argmax``. With a collective context (``parallel/collectives.py``) the
+    votes are this rank's node shard and the candidates whole: the counts
+    are summed over ``'nodes'``."""
     c = cand_hi.shape[-1]
     matches = (
         vote_valid[..., None, :]
@@ -56,6 +59,9 @@ def tally_candidates(
     )
     counts = matches.sum(-1, dtype=torch.int32)
     total = vote_valid.sum(-1, dtype=torch.int32)
+    if ctx is not None:
+        both = ctx.sum(torch.cat([counts, total[..., None]], -1), ("nodes",), "vote tally")
+        counts, total = both[..., :-1], both[..., -1]
     max_count = counts.amax(-1)
     cand_ids = torch.arange(c, dtype=torch.int32, device=counts.device)
     best = torch.where(counts == max_count[..., None], cand_ids, c).amin(-1)

@@ -9,6 +9,7 @@ plane's :func:`telemetry_cut_masks` beside it.
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
@@ -103,6 +104,7 @@ def cohort_watermark_pass(
     l,
     k: int,
     select: bool = False,
+    ctx=None,
 ):
     """C independent watermark detectors over ``[c, n]`` ring-report
     bitmasks (MultiNodeCutDetector.java:84-164 per cohort), at the report
@@ -124,8 +126,13 @@ def cohort_watermark_pass(
     rarely needed. With ``select=True`` (the fleet, where vmap makes the
     cond a select) it is computed for every batch with no read: where a
     batch's gate is clear, no subject is in flux after a DOWN alert, so
-    the pass ORs in no bit and leaves that batch as it was."""
-    n = report_bits.shape[-1]
+    the pass ORs in no bit and leaves that batch as it was.
+
+    Sharded (``ctx``, the engine's ``[t, ...]`` lanes on one rank's shard):
+    the gate is reduced over the whole mesh, so every rank branches alike;
+    the pass gathers ``in_union`` over ``'nodes'`` (observers are global
+    slots), inside its gate; the proposal tests are reduced over
+    ``'nodes'``."""
     report_bits, cls = watermark_merge_classify(
         report_bits, new_bits, subject_mask[..., None, :], h, l
     )
@@ -133,24 +140,36 @@ def cohort_watermark_pass(
     stable = cls == 2
     flux = cls == 1
 
-    if select or _host.read(torch.any(flux & seen_down[..., None])):
-        in_union = (stable & ~released) | flux
-        implicit = torch.zeros_like(report_bits)
-        bdt = report_bits.dtype
-        for ring in range(k):
-            obs_r = inval_obs[..., ring, :]
-            at = obs_r.clamp(0, n - 1).to(torch.int64)[..., None, :].expand(in_union.shape)
-            gathered = torch.gather(in_union, -1, at)
-            implicit_r = flux & gathered & (obs_r >= 0)[..., None, :] & seen_down[..., None]
-            implicit |= torch.where(implicit_r, _narrow.bit(ring, bdt), 0).to(bdt)
-        report_bits = torch.where(subject_mask[..., None, :], report_bits | implicit, 0)
+    gate = None if select else torch.any(flux & seen_down[..., None])
+    if gate is not None and ctx is not None:
+        gate = ctx.max(gate, ("cohort", "nodes"), "invalidation gate")
+    if select or _host.read(gate):
+        with contextlib.nullcontext() if ctx is None else ctx.gate():
+            in_union = (stable & ~released) | flux
+            if ctx is not None:
+                in_union = ctx.gather(in_union, "nodes", "invalidation union", sharded=("cohort",))
+            n = in_union.shape[-1]
+            implicit = torch.zeros_like(report_bits)
+            bdt = report_bits.dtype
+            for ring in range(k):
+                obs_r = inval_obs[..., ring, :]
+                at = obs_r.clamp(0, n - 1).to(torch.int64)[..., None, :].expand(report_bits.shape)
+                gathered = torch.gather(in_union, -1, at)
+                implicit_r = flux & gathered & (obs_r >= 0)[..., None, :] & seen_down[..., None]
+                implicit |= torch.where(implicit_r, _narrow.bit(ring, bdt), 0).to(bdt)
+            report_bits = torch.where(subject_mask[..., None, :], report_bits | implicit, 0)
 
     tally2 = popcount32(report_bits)
     h, l = per_batch(h, tally2), per_batch(l, tally2)
     stable2 = tally2 >= h
     flux2 = (tally2 >= l) & (tally2 < h)
     fresh_stable = stable2 & ~released
-    propose = ~announced & fresh_stable.any(-1) & ~flux2.any(-1)
+    fresh_any, flux_any = fresh_stable.any(-1), flux2.any(-1)
+    if ctx is not None:
+        both = ctx.max(torch.stack([fresh_any, flux_any]), ("nodes",), "proposal gate",
+                       sharded=("cohort",))
+        fresh_any, flux_any = both[0], both[1]
+    propose = ~announced & fresh_any & ~flux_any
     proposal_mask = fresh_stable & propose[..., None]
     return (
         report_bits,

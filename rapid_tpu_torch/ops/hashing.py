@@ -32,17 +32,26 @@ def mix32(x: torch.Tensor) -> torch.Tensor:
     return _u32.narrow(_u32.mix32_w(_u32.widen(x)))
 
 
-def masked_set_hash(hi: torch.Tensor, lo: torch.Tensor, mask: torch.Tensor) -> tuple:
+def masked_set_hash(hi: torch.Tensor, lo: torch.Tensor, mask: torch.Tensor, ctx=None,
+                    sharded=()) -> tuple:
     """Order-independent 64-bit identity of the set of members selected by
     ``mask`` (reduced over the last axis). ``mask`` may carry leading batch
     axes, e.g. ``[c, n]`` for one hash per cohort, and the identity lanes
     broadcast against it: a fleet passes ``[t, 1, n]`` ids with ``[t, c,
-    n]`` masks. Sums wrap mod 2**32. Returns stored uint32 (hi, lo)."""
+    n]`` masks. Sums wrap mod 2**32. Returns stored uint32 (hi, lo).
+
+    With a collective context (``parallel/collectives.py``) the last axis is
+    this rank's node shard: the int64 partial sums are summed over
+    ``'nodes'`` (``sharded`` names the axes the leading dimensions are split
+    over), then taken mod 2**32, which is exact."""
     m = mask.to(torch.int64)
     mixed_hi = _u32.mix32_w(_u32.widen(hi) ^ 0x9E3779B9)
     mixed_lo = _u32.mix32_w(_u32.widen(lo) ^ 0x85EBCA77)
-    h1 = _u32.add((mixed_hi * m).sum(-1), m.sum(-1))
-    h2 = (mixed_lo * m).sum(-1) & _u32.MASK
+    sums = ((mixed_hi * m).sum(-1), m.sum(-1), (mixed_lo * m).sum(-1))
+    if ctx is not None:
+        sums = ctx.sum(torch.stack(sums), ("nodes",), "set hash", sharded=sharded)
+    h1 = _u32.add(sums[0], sums[1])
+    h2 = sums[2] & _u32.MASK
     return (
         _u32.narrow(_u32.mix32_w(h1)),
         _u32.narrow(_u32.mix32_w(_u32.add(h2, h1))),

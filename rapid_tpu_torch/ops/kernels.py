@@ -80,7 +80,8 @@ def bits_to_reports_matrix(bits: torch.Tensor, k: int) -> torch.Tensor:
 
 
 
-def delivery_new_bits_ref(blocked_rows, age_kn, epoch, k: int, c: int, spread: int, permille: int):
+def delivery_new_bits_ref(blocked_rows, age_kn, epoch, k: int, c: int, spread: int, permille: int,
+                          slot_offset: int = 0, cohort_offset: int = 0):
     """The plain PyTorch delivery pass (the JAX engine's jnp path,
     ``virtual_cluster._deliver_alerts``), stored uint32.
 
@@ -93,19 +94,28 @@ def delivery_new_bits_ref(blocked_rows, age_kn, epoch, k: int, c: int, spread: i
     A fleet: the same with a leading tenant axis, blocked_rows ``[t, w*k,
     n]``, age_kn ``[t, k, n]`` and epoch ``[t]`` (each tenant's own epoch).
     Returns ``[t, c, n]``; tenant i equals the one-cluster call on its
-    slices."""
+    slices.
+
+    A shard of a sharded cluster (``parallel/``) passes its local columns
+    and cohort rows, packed over its own ``c`` cohorts, with
+    ``slot_offset`` (the global slot of local column 0) and
+    ``cohort_offset`` (the global cohort of local row 0): the delay draws
+    are salted with global slots and cohorts, so the shards' outputs,
+    side by side, are the whole cluster's."""
     if age_kn.dim() == 2:
         return delivery_new_bits_ref(
-            blocked_rows[None], age_kn[None], epoch.reshape(1), k, c, spread, permille
+            blocked_rows[None], age_kn[None], epoch.reshape(1), k, c, spread, permille,
+            slot_offset, cohort_offset,
         )[0]
     t, _, n = age_kn.shape
     dev = age_kn.device
     c_ids = torch.arange(c, dtype=torch.int64, device=dev)
     word_idx = c_ids // 32
     bit_idx = c_ids % 32
-    slot_salt = _u32.mul(torch.arange(n, dtype=torch.int64, device=dev), 0x85EBCA77)
+    slot_salt = _u32.mul(torch.arange(n, dtype=torch.int64, device=dev) + slot_offset, 0x85EBCA77)
     epoch_salt = _u32.mul(_u32.widen(epoch.reshape(t)), 0x27D4EB2F)
-    base = (_u32.mul(c_ids, 0x9E3779B1)[:, None] ^ slot_salt[None, :]) ^ epoch_salt[:, None, None]
+    cohort_salt = _u32.mul(c_ids + cohort_offset, 0x9E3779B1)
+    base = (cohort_salt[:, None] ^ slot_salt[None, :]) ^ epoch_salt[:, None, None]
     new_bits = torch.zeros((t, c, n), dtype=torch.int64, device=dev)
     for ring in range(k):
         words = _u32.widen(blocked_rows[:, word_idx * k + ring, :])  # [t, c, n]
@@ -128,7 +138,8 @@ def delivery_new_bits_ref(blocked_rows, age_kn, epoch, k: int, c: int, spread: i
 MAX_TENANTS = 65535
 
 
-def _check_delivery_args(blocked_rows, age_kn, epoch, k, c, spread, permille):
+def _check_delivery_args(blocked_rows, age_kn, epoch, k, c, spread, permille, slot_offset=0,
+                         cohort_offset=0):
     """Shapes, types, layout and device of a delivery call; raises on
     anything the kernel does not take. Returns the common device."""
     tensors = {"blocked_rows": blocked_rows, "age_kn": age_kn, "epoch": epoch}
@@ -144,6 +155,10 @@ def _check_delivery_args(blocked_rows, age_kn, epoch, k, c, spread, permille):
         raise ValueError(f"delivery inputs lie on different devices: {sorted(map(str, devices))}")
     if not 1 <= k <= 32 or not 1 <= c <= 1024 or not 0 <= spread < 2**31 or not 0 <= permille <= 1000:
         raise ValueError(f"bad delivery parameters k={k} c={c} spread={spread} permille={permille}")
+    if not 0 <= slot_offset < 2**31 or not 0 <= cohort_offset < 2**31:
+        raise ValueError(
+            f"bad delivery offsets slot_offset={slot_offset} cohort_offset={cohort_offset}"
+        )
     w = (c + 31) // 32
     if age_kn.dim() not in (2, 3) or age_kn.shape[-2] != k:
         raise ValueError(f"age_kn must be [k={k}, n] or [t, k={k}, n], got {tuple(age_kn.shape)}")
@@ -186,20 +201,25 @@ def delivery_divisor(spread: int, permille: int) -> int:
 @functools.cache
 def _delivery_fn():
     fn = _build.load("delivery").rapid_delivery_new_bits
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_uint64, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_uint64, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def delivery_new_bits(blocked_rows, age_kn, epoch, k: int, c: int, spread: int, permille: int):
+def delivery_new_bits(blocked_rows, age_kn, epoch, k: int, c: int, spread: int, permille: int,
+                      slot_offset: int = 0, cohort_offset: int = 0):
     """Per-cohort delivered alert bitmasks, ``[c, n]`` for one cluster or
     ``[t, c, n]`` for a fleet (stored uint32): the CUDA kernel
     ``csrc/delivery.cu`` on CUDA tensors, one launch per call whatever
     ``t``; the plain version on CPU tensors. Arguments as
-    :func:`delivery_new_bits_ref`."""
-    device = _check_delivery_args(blocked_rows, age_kn, epoch, k, c, spread, permille)
+    :func:`delivery_new_bits_ref`, the offsets included."""
+    device = _check_delivery_args(
+        blocked_rows, age_kn, epoch, k, c, spread, permille, slot_offset, cohort_offset
+    )
     if device.type == "cpu":
-        return delivery_new_bits_ref(blocked_rows, age_kn, epoch, k, c, spread, permille)
+        return delivery_new_bits_ref(
+            blocked_rows, age_kn, epoch, k, c, spread, permille, slot_offset, cohort_offset
+        )
     if device.type != "cuda":
         raise ValueError(f"delivery_new_bits runs on cuda or cpu tensors, got {device}")
     t = age_kn.shape[0] if age_kn.dim() == 3 else 1
@@ -210,7 +230,7 @@ def delivery_new_bits(blocked_rows, age_kn, epoch, k: int, c: int, spread: int, 
         stream = torch.cuda.current_stream(device).cuda_stream
         err = _delivery_fn()(
             blocked_rows.data_ptr(), age_kn.data_ptr(), epoch.data_ptr(), out.data_ptr(),
-            t, n, k, c, spread, permille, m, stream,
+            t, n, k, c, spread, permille, slot_offset, cohort_offset, m, stream,
         )
     if err != 0:
         raise RuntimeError(f"delivery kernel launch failed: cudaError {err}")

@@ -141,7 +141,7 @@ def _alive_first_order(perm: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
     return torch.zeros_like(perm).scatter_(-1, dest, perm)
 
 
-def ring_topology_from_perm(perm: torch.Tensor, alive: torch.Tensor) -> RingTopology:
+def ring_topology_from_perm(perm: torch.Tensor, alive: torch.Tensor, ctx=None) -> RingTopology:
     """All K rings' topology from the static permutations and the alive
     mask, sort-free. Successor among alive = next alive position in the
     circular key order (suffix min, done as flip + cummin + flip), and
@@ -149,7 +149,21 @@ def ring_topology_from_perm(perm: torch.Tensor, alive: torch.Tensor) -> RingTopo
     any index dtype (the compact layout stores it at int8 or int16); it is
     widened to int64 for every gather and scatter. Returns int32 tables.
     Leading batch axes (a fleet's tenants) ride along: ``perm [..., K, N]``
-    with ``alive [..., N]``."""
+    with ``alive [..., N]``.
+
+    With a collective context (``parallel/collectives.py``) ``perm`` and
+    ``alive`` are this rank's columns of a node-sharded cluster. The scans
+    run in key order across every shard, so both are gathered over
+    ``'nodes'`` (the one collective-heavy op of the engine, on the view
+    change's branch only), every rank derives the whole topology, and the
+    tables come back as this rank's columns (``order`` as its positions)."""
+    if ctx is not None:
+        lo, hi = ctx.slot_offset, ctx.slot_offset + ctx.n_local
+        topo = ring_topology_from_perm(
+            ctx.gather(perm.to(torch.int32), "nodes", "ring permutations"),
+            ctx.gather(alive, "nodes", "view-change membership"),
+        )
+        return RingTopology(*(table[..., lo:hi] for table in topo))
     perm = perm.to(torch.int64)
     n = perm.shape[-1]
     edge = perm.shape[:-1] + (1,)

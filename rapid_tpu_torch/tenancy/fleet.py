@@ -1,8 +1,8 @@
 """The tenant fleet: B independent virtual clusters stepped together, one
 round of the engine for every tenant per call (port of
 ``rapid_tpu/tenancy/fleet.py`` with its telemetry and trace twins and its
-serving seams, ``stream_step`` and ``stream_crash``; the sharded mesh entry
-points are not ported).
+serving seams, ``stream_step`` and ``stream_crash``, and the mesh entry
+points :func:`make_fleet_step` / :func:`make_fleet_wave`).
 
 The JAX package vmaps its engine over a leading tenant axis. Here the round
 body itself works on ``[t, ...]`` lanes (``models/virtual_cluster.py``),
@@ -67,10 +67,23 @@ from rapid_tpu_torch.models.virtual_cluster import (
     VirtualCluster,
     _compute_round,
     _edge_masks,
+    _gate,
+    _loop,
     apply_view_change_impl,
 )
 from rapid_tpu_torch.models.virtual_cluster import telemetry_digest as fleet_telemetry_digest
 from rapid_tpu_torch.models.virtual_cluster import trace_digest as fleet_trace_digest
+from rapid_tpu_torch.parallel.collectives import TENANT_AXIS
+from rapid_tpu_torch.parallel.mesh import (
+    _context,
+    _event_shardings,
+    _resolve_spec,
+    fleet_fault_shardings,
+    fleet_state_shardings,
+    local_tree,
+    match_partition_rules,
+    wrap_tree,
+)
 from rapid_tpu_torch.utils import engine_telemetry, exposition
 from rapid_tpu_torch.utils.dispatch import DispatchSeam
 from rapid_tpu_torch.utils.health import NodeHealth
@@ -129,17 +142,21 @@ def fleet_step(
     knobs: TenantKnobs,
     telem: Optional[TelemetryLanes] = None,
     trace: Optional[TraceRing] = None,
+    ctx=None,
 ):
     """One protocol round for every tenant, with each decided tenant's view
     change applied. Returns ``(state, events, telem, trace)``: events
     stacked (``[t]`` scalars, ``[t, n]`` winner masks), and every tenant's
     plane lanes advanced (``None`` where none were given), quarantined
-    tenants included, as the JAX fleet's batched step does."""
+    tenants included, as the JAX fleet's batched step does. ``ctx``: this
+    rank's shard of a ``('tenant', 'cohort', 'nodes')`` mesh
+    (:func:`make_fleet_step`)."""
     tcfg = _tenant_cfg(cfg, knobs)
     round_state, decided, winner, events, telem, trace = _compute_round(
-        tcfg, state, faults, select=True, telem=telem, trace=trace
+        tcfg, state, faults, select=True, telem=telem, trace=trace, ctx=ctx
     )
-    committed = apply_view_change_impl(tcfg, round_state, winner)
+    with _gate(ctx):
+        committed = apply_view_change_impl(tcfg, round_state, winner, ctx)
     return select_lanes(decided, committed, round_state), events, telem, trace
 
 
@@ -193,6 +210,7 @@ def fleet_wave(
     min_cuts: torch.Tensor,
     telem: Optional[TelemetryLanes] = None,
     trace: Optional[TraceRing] = None,
+    ctx=None,
 ):
     """The fleet's whole-wave loop: every tenant runs convergences through
     as many view changes as it needs to reach its own ``target`` membership
@@ -206,7 +224,8 @@ def fleet_wave(
     ``target`` and ``min_cuts`` are ``[t]`` int32 on the state's device.
     Returns ``(state, steps[t], cuts[t], resolved[t], sizes[t, max_cuts],
     telem, trace)`` as device tensors, ``sizes`` -1 beyond each tenant's
-    cuts."""
+    cuts. ``ctx``: this rank's shard of a mesh (:func:`make_fleet_wave`);
+    the loop's predicate stays the replicated counter."""
     tcfg = _tenant_cfg(cfg, knobs)
     t = state.alive.shape[0]
     dev = state.alive.device
@@ -219,10 +238,12 @@ def fleet_wave(
     done = (state.n_members == target) & (min_cuts <= 0)
     for _ in range(max_steps):
         active = ~done & (steps < max_steps)
-        round_state, decided, winner, _, round_telem, round_trace = _compute_round(
-            tcfg, state, faults, select=True, telem=telem, trace=trace
-        )
-        committed = apply_view_change_impl(tcfg, round_state, winner)
+        with _loop(ctx):
+            round_state, decided, winner, _, round_telem, round_trace = _compute_round(
+                tcfg, state, faults, select=True, telem=telem, trace=trace, ctx=ctx
+            )
+            with _gate(ctx):
+                committed = apply_view_change_impl(tcfg, round_state, winner, ctx)
         commit = active & decided
         state = select_lanes(commit, committed, select_lanes(active, round_state, state))
         telem = select_lanes(active, round_telem, telem)
@@ -237,6 +258,77 @@ def fleet_wave(
         done = done | (commit & resolved) | (cuts >= max_cuts)
     resolved = (state.n_members == target) & (cuts >= min_cuts)
     return state, steps, cuts, resolved, sizes, telem, trace
+
+
+#: Partition rules for the knob lanes, in the ``parallel/mesh.py`` table
+#: style (a copy of the JAX fleet's): every knob is a ``[t]`` lane on
+#: ``'tenant'``.
+PARTITION_RULES: Tuple[Tuple[str, Tuple[Optional[str], ...]], ...] = (
+    (r"h|l|fd_threshold|fallback_rounds", (TENANT_AXIS,)),
+)
+
+
+def knob_shardings(mesh) -> TenantKnobs:
+    """Placements for the knob lanes from :data:`PARTITION_RULES` (on
+    ``'tenant'``; replicated on a mesh without the axis)."""
+    specs = match_partition_rules(PARTITION_RULES, TenantKnobs._fields)
+    return TenantKnobs(**{f: _resolve_spec(specs[f], mesh) for f in TenantKnobs._fields})
+
+
+def make_fleet_step(cfg: EngineConfig, mesh):
+    """:func:`fleet_step` over a ``('tenant', 'cohort', 'nodes')`` mesh:
+    ``step(state, faults, knobs) -> (state, events)``, the state returned
+    under its input placements (``fleet_state_shardings``). No collective
+    spans the tenant axis: each rank's groups lie within its tenant block."""
+    st_sh, ft_sh = fleet_state_shardings(mesh), fleet_fault_shardings(mesh)
+    kn_sh, ev_sh = knob_shardings(mesh), _event_shardings(mesh, (TENANT_AXIS,))
+    ctx = _context(cfg, mesh, fleet=True)
+
+    def step(state, faults, knobs):
+        new, events, _, _ = fleet_step(
+            cfg, local_tree(state, st_sh, mesh), local_tree(faults, ft_sh, mesh),
+            local_tree(knobs, kn_sh, mesh), ctx=ctx,
+        )
+        return wrap_tree(new, st_sh, mesh), wrap_tree(events, ev_sh, mesh)
+
+    step.context = ctx
+    return step
+
+
+def make_fleet_wave(cfg: EngineConfig, mesh, max_cuts: int = 8):
+    """The lockstep :func:`fleet_wave` over the mesh: ``wave(state, faults,
+    knobs, target, max_steps, min_cuts) -> (state, steps, cuts, resolved,
+    sizes)``. ``target`` / ``min_cuts`` are ``[t]`` lanes on ``'tenant'``
+    (DTensors, or whole tensors alike on every rank); ``max_steps``, an
+    int, is the loop's only predicate, so no collective carries the tenant
+    axis. The ``[t]`` results come back as DTensors on ``'tenant'``."""
+    st_sh, ft_sh = fleet_state_shardings(mesh), fleet_fault_shardings(mesh)
+    kn_sh, lane = knob_shardings(mesh), _resolve_spec((TENANT_AXIS,), mesh)
+    ctx = _context(cfg, mesh, fleet=True)
+
+    def wave(state, faults, knobs, target, max_steps, min_cuts):
+        target, min_cuts = local_tree(_Lanes(target, min_cuts), (lane, lane), mesh)
+        new, steps, cuts, resolved, sizes, _, _ = fleet_wave(
+            cfg, local_tree(state, st_sh, mesh), local_tree(faults, ft_sh, mesh),
+            local_tree(knobs, kn_sh, mesh), target, int(max_steps), max_cuts, min_cuts, ctx=ctx,
+        )
+        out = wrap_tree(_Results(steps, cuts, resolved, sizes), (lane,) * 4, mesh)
+        return (wrap_tree(new, st_sh, mesh), *out)
+
+    wave.context = ctx
+    return wave
+
+
+class _Lanes(NamedTuple):
+    target: torch.Tensor
+    min_cuts: torch.Tensor
+
+
+class _Results(NamedTuple):
+    steps: torch.Tensor
+    cuts: torch.Tensor
+    resolved: torch.Tensor
+    sizes: torch.Tensor
 
 
 def tenant_health(cfg: EngineConfig, state: EngineState) -> torch.Tensor:

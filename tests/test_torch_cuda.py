@@ -17,7 +17,10 @@ and a hierarchical family, equal to the CPU's replay; its delivery calls
 free of synchronizing calls) with a 2-cohort hierarchical service whose
 card cut detector decides what the host detector decides, and the native
 host library built there with a 2,048-endpoint cluster resumed from a saved
-``Configuration`` on the card equal to the same on the CPU.
+``Configuration`` on the card equal to the same on the CPU, and the
+sharded engine: the delivery kernel on column and cohort shards with
+offsets, and the sharded step, wave and fleet step on one-rank NCCL meshes
+equal to the unsharded engine on the card.
 Every test needs a CUDA card and ``nvcc``
 and skips without them. On a GPU machine, from the root of a checkout
 (``--noconftest`` because the suite's conftest configures JAX, which the
@@ -685,3 +688,98 @@ def test_replay_delivery_calls_make_no_synchronizing_call(card):
     finally:
         virtual_cluster.delivery_new_bits = real
     assert calls
+
+
+def _packed(blocked, dev):
+    """``[c, k, n]`` bools -> ``[w*k, n]`` stored words (row wi*k + ring,
+    bit j = cohort 32*wi + j)."""
+    c, k, n = blocked.shape
+    words = np.zeros(((c + 31) // 32, k, n), dtype=np.uint64)
+    for ci in range(c):
+        words[ci // 32] |= blocked[ci].astype(np.uint64) << np.uint64(ci % 32)
+    return _u32.from_numpy(words.astype(np.uint32).reshape(-1, n), dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,c_local", [(8, 4), (64, 32), (40, 40)])
+@pytest.mark.parametrize("spread,permille", [(0, 1000), (2, 1000), (3, 300)])
+def test_delivery_kernel_on_shards_with_offsets(card, c, c_local, spread, permille):
+    # Column slices at unaligned slot offsets and cohort shards (one that
+    # splits a word at c=8, whole words at c=64): each launch equals its
+    # plain version, and the shards side by side equal the whole launch.
+    k, n = 10, 3001
+    rng = np.random.default_rng(c + spread)
+    blocked = rng.random((c, k, n)) < 0.3
+    age = torch.from_numpy(rng.integers(-2, 6, size=(k, n)).astype(np.int32)).to(card)
+    epoch = torch.tensor([3], dtype=torch.int32, device=card)
+    whole = delivery_new_bits(_packed(blocked, card), age, epoch, k, c, spread, permille)
+    for c0 in range(0, c, c_local):
+        parts = []
+        for lo, hi in ((0, 1000), (1000, 1777), (1777, n)):
+            args = (_packed(blocked[c0:c0 + c_local, :, lo:hi], card), age[:, lo:hi].contiguous(),
+                    epoch, k, c_local, spread, permille, lo, c0)
+            got = delivery_new_bits(*args)
+            assert torch.equal(got, delivery_new_bits_ref(*args)), (c0, lo)
+            parts.append(got)
+        assert torch.equal(torch.cat(parts, -1), whole[c0:c0 + c_local]), c0
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_mesh_runs_the_sharded_engine_as_unsharded(card, tmp_path):
+    # The sharded entry points on one-rank NCCL meshes (every collective
+    # issued) against the unsharded engine on the card, lane by lane.
+    import os
+
+    import torch.distributed as dist
+    import torch_mesh_jobs as jobs
+
+    from rapid_tpu_torch.models.virtual_cluster import engine_step, run_until_membership
+    from rapid_tpu_torch.parallel import mesh as pm
+    from rapid_tpu_torch.parallel.multihost import initialize_multihost
+    from rapid_tpu_torch.tenancy.fleet import fleet_step, make_fleet_step
+
+    def create(*args, **kwargs):
+        return VirtualCluster.create(*args, device=card, **kwargs)
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    initialize_multihost(f"file://{tmp_path}/store", 1, 0)
+    try:
+        for shape in (None, (1, 1)):
+            mesh = pm.make_mesh(shape=shape)
+            vc = jobs.build("multi_cut", create)
+            want, *wres, _, _ = run_until_membership(vc.cfg, vc.state, vc.faults, 70, 192, 8, 1)
+            vc = jobs.build("multi_cut", create)
+            wave = pm.make_sharded_wave(vc.cfg, mesh)
+            got, *gres = wave(pm.shard_state(vc.state, mesh), pm.shard_faults(vc.faults, mesh),
+                              70, 192, 1)
+            assert gres[:3] == wres[:3] and gres[2]
+            assert state_to_numpy(pm.local_tree(got)).keys() == state_to_numpy(want).keys()
+            for field, value in state_to_numpy(want).items():
+                assert np.array_equal(state_to_numpy(pm.local_tree(got))[field], value), field
+            vc = jobs.build("partitioned", create)
+            state = vc.state
+            step = pm.make_sharded_step(vc.cfg, mesh)
+            sharded = pm.shard_state(vc.state, mesh)
+            faults = pm.shard_faults(vc.faults, mesh)
+            for _ in range(12):
+                state, _, decided, _, _ = engine_step(vc.cfg, state, vc.faults)
+                sharded, _ = step(sharded, faults)
+                assert step.decided == decided
+            for field, value in state_to_numpy(state).items():
+                assert np.array_equal(state_to_numpy(pm.local_tree(sharded))[field], value), field
+            assert {r["label"] for r in step.context.log} >= {"classic coordinators", "vote tally"}
+        clusters, _ = jobs.fleet_clusters(create)
+        from rapid_tpu_torch.tenancy import TenantFleet
+
+        fleet = TenantFleet.from_clusters(clusters)
+        mesh = pm.make_mesh(shape=(1, 1, 1))
+        step = make_fleet_step(fleet.cfg, mesh)
+        state, sharded = fleet.state, pm.shard_fleet_state(fleet.state, mesh)
+        faults = pm.shard_fleet_faults(fleet.faults, mesh)
+        for _ in range(8):
+            state, *_ = fleet_step(fleet.cfg, state, fleet.faults, fleet.knobs)
+            sharded, _ = step(sharded, faults, fleet.knobs)
+        for field, value in state_to_numpy(state).items():
+            assert np.array_equal(state_to_numpy(pm.local_tree(sharded))[field], value), field
+    finally:
+        dist.destroy_process_group()

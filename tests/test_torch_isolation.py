@@ -1,15 +1,18 @@
 """The PyTorch port stands alone, and its kernel wrapper never falls back.
 
-- Importing every ``rapid_tpu_torch`` module and ``chip_smoke`` loads
-  neither ``jax`` nor anything of ``rapid_tpu`` (checked in a fresh
-  interpreter, since this test process has both loaded), and neither does
+- Importing every ``rapid_tpu_torch`` module, ``chip_smoke`` and
+  ``mesh_smoke`` loads neither ``jax`` nor anything of ``rapid_tpu``
+  (checked in a fresh interpreter, since this test process has both
+  loaded), and neither does
   importing the serving tier alone (``rapid_tpu_torch.serving``) or the
   observability tier alone (``utils``: health, clock, flight recorder,
   exposition, engine telemetry, profiling), or the host membership path
   alone (``protocol``, ``messaging``, ``monitoring``), or the hierarchical
   service, the UDP and gossip transports, the windowed detector and the
   host chaos harness alone (``hier``, ``sim``), or the reference-wire
-  interop, the native library's bridge or the checkpoint module alone;
+  interop, the native library's bridge or the checkpoint module alone, or
+  the sharded engine (``parallel``, the fleet's mesh entry points) or the
+  run ledger alone;
   ``rapid_tpu_torch.interop`` and its protobuf conversions import with
   ``grpc`` blocked.
 - The delivery wrapper raises on inputs its kernel does not take instead of
@@ -31,7 +34,7 @@ REPO = Path(__file__).resolve().parent.parent
 _PROBE = """
 import importlib, pkgutil, sys
 import rapid_tpu_torch
-names = ["chip_smoke"] + [
+names = ["chip_smoke", "mesh_smoke"] + [
     m.name for m in pkgutil.walk_packages(rapid_tpu_torch.__path__, "rapid_tpu_torch.")
 ]
 for name in names:
@@ -50,8 +53,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_rapid_tpu():
     # rule (_narrow), the endpoint type, the host hashing (utils.xxhash), the
     # serving tier (serving, utils.checkpoint, ...) and the chaos subsystem
     # (settings, hier, sim, tenancy.chaos), the native library's bridge
-    # (utils._native) and the interop (interop.*) included.
-    assert int(out[0]) >= 78
+    # (utils._native), the interop (interop.*) and the sharded engine
+    # (parallel.*) included.
+    assert int(out[0]) >= 85
     assert out[1].strip() == "[]", f"the port loaded: {out[1]}"
 
 
@@ -148,6 +152,11 @@ _HOST_RUNTIME_PROBES = {
                "from rapid_tpu_torch.interop import convert, grpc_transport, proto_schema",
     "native": "from rapid_tpu_torch.utils import _native",
     "checkpoint": "from rapid_tpu_torch.utils import checkpoint",
+    "parallel": "import rapid_tpu_torch.parallel\n"
+                "from rapid_tpu_torch.parallel import audit, collective_facts, collectives, mesh,"
+                " multihost\n"
+                "from rapid_tpu_torch.tenancy.fleet import make_fleet_step, make_fleet_wave",
+    "ledger": "from rapid_tpu_torch.utils.ledger import RunLedger, read_ledger",
 }
 
 
