@@ -36,7 +36,7 @@ exits non-zero:
 8. fleet_path: ``bench.py``'s fleet point on the port as ``bench.py`` writes
    it, 256 tenants x 1,024 members with the telemetry plane on, resolved in
    one 96-round lockstep wave; in the same call the same waves with the
-   plane off. Per side a warm-up and five timed samples on fresh fleets
+   plane off. Per side a warm-up and two timed samples on fresh fleets
    (built on the CPU and copied to the card; the sides take turns), then
    one profiled wave;
 9. telemetry_engine: phase 3's churn with the plane and a 6-round ring
@@ -212,6 +212,36 @@ exits non-zero:
    host microseconds of one collective on the one-rank group. The rounds
    of (b)'s and (d)'s warm-ups and of (c)'s first sharded run are
    captured for phase 10's checks.
+24. entry_points: the port's command lines and examples
+   (``rapid_tpu_torch.examples`` / ``.tools``), each run as ``python -m``
+   would run it in an interpreter where importing ``jax`` or ``rapid_tpu``
+   fails, each step with a timeout of its own, each process writing its
+   delivery launches (``RAPID_TPU_TORCH_LAUNCH_REPORT``). (a) Five
+   ``standalone_agent`` processes on loopback TCP, their cut detector and
+   vote tally on the card: they converge to 5, a SIGKILL brings the rest to
+   4, every survivor's ``--metrics-dump`` holds the same configuration id;
+   bootstrap and crash-to-convergence wall ms. (b) ``chaosrun run`` of each
+   of the ten families at seed 0 (the differential replay on the card) and
+   a ``replay`` of each written directory, ten processes at a time; one
+   ``fuzz --fleet 256`` at phase 17's base seed, whose per-family tallies
+   and totals must equal phase 17's. (c) ``virtual_cluster_demo`` at full
+   size, and the same in this process with its rounds captured: equal
+   lines but for the times. (d) ``bootstrap_bench`` at N=2,000 and
+   100,000, and ``run_bootstrap`` in this process, captured: equal view
+   changes, sizes and rounds. (e) ``khl_sensitivity`` at its defaults
+   (n=1,000, C=64, spread 128, 1000 permille) but 10 reps of its 20 (the
+   cut that keeps the run inside its limit), started first and run beside
+   the rest; then its cell (6, 4, 2) in this process, captured, to the
+   same table line. (f) ``fleet_khl_autotune`` at its defaults and
+   in this process, captured: equal output. (g) ``kernel_microbench``
+   (kernel against plain at [64, 100,000] and [8, 1,000,000], bit for bit).
+   (h) ``host_scale_ceiling --sizes 50,100,200`` and ``udp_loss_curve`` at
+   its defaults, beside the rest. (i) ``traceview``, ``clustertop --once``
+   and ``perfview`` over (a)'s dumps, (b)'s artifacts and the phase's own
+   ``RunLedger`` of its steps. (j) ``collective_audit`` on a one-rank NCCL
+   group at phase 23's churn (102,500 slots, C=64, seed 4, the 2-D mesh
+   (1, 1)): its loop's collectives by site, kind and class equal phase
+   23's. The captured rounds then go through phase 10's checks and timings.
 
 A kernel's bound (``delivery_bound``) is the larger of its bytes (each
 input once, the output once) over the HBM rate and the delay draws its
@@ -222,7 +252,8 @@ The delivery kernel's launch count is zeroed just before each of the
 paths 4, 5, 8, 12 (churn and 1M), 13, 14, 15 (each stream), 16 (each drill
 with its twin), 17 (the timed fleet), 18 (the three churns) and 19 (each
 scraped path and the profiled churn) and 21 (a: the grid's ``check_all``
-replays) and 22 (f) and 23 (each of b-e, each side) and read just after;
+replays) and 22 (f) and 23 (each of b-e, each side) and 24 (each
+in-process twin; each process of phase 24 starts from 0) and read just after;
 phase 20 and phase 21's (b) and (c) zero it and must leave it at 0. Then the kernels
 line (with ptxas's facts), the card's
 name and power limit from ``nvidia-smi``, and as the last line
@@ -232,6 +263,7 @@ name and power limit from ``nvidia-smi``, and as the last line
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import functools
 import json
@@ -265,8 +297,15 @@ TIMED_SAMPLES = 5  # per side of the plane-on / plane-off comparison
 # bench.py's fleet point: B tenants of N members, n_extra = N // 50 extra
 # slots, 8 cohorts, K=10, fd_threshold 3, spread 2, one 96-round wave.
 FLEET = dict(tenants=256, n=1_024, n_extra=20, k=10, cohorts=8, spread=2, max_steps=96)
-FLEET_TIMED_SAMPLES = 5  # per side of the plane-on / plane-off comparison
+# Per side of the plane-on / plane-off comparison: 2 since phase 24 came
+# (5 before), the cut that keeps the whole run inside its time limit.
+FLEET_TIMED_SAMPLES = 2
 COMPACT_TIMED_SAMPLES = 3  # per side of the wide / compact comparisons (churn, fleet)
+
+
+#: What a phase leaves for a later one to hold against (phase 24 holds its
+#: subprocesses to phase 17's fleet tallies and phase 23's collectives).
+FACTS = {}
 
 
 def check(cond, message):
@@ -1929,6 +1968,8 @@ def phase_chaos(dev, captured):
     lap("timed")
     check(not summary["violations"], "chaos fleet violations:\n" + "\n".join(summary["violations"]))
     check(launches > 0, "the chaos fleet never launched the delivery kernel")
+    FACTS["chaos"] = {key: summary[key] for key in ("families", "family_violations", "tenants",
+                                                    "total_cuts")}
     check(len(runs) == 1, f"fuzz_fleet made {len(runs)} fleet runs")
     timed = runs[0]
     n_groups = max(len(s.groups) for s in timed.scenarios)
@@ -2831,7 +2872,10 @@ async def hier_udp_cluster(dev):
     try:
         clusters += await asyncio.gather(*(Cluster.join(eps[0], eps[i], **kw(i))
                                            for i in range(1, n)))
-        check(await converged(clusters, n), "the hierarchical UDP cluster did not form")
+        check(await converged(clusters, n),
+              "the hierarchical UDP cluster did not form; (size, config id) -> nodes: "
+              + str(dict(collections.Counter((c.membership_size, c.service.view.configuration_id)
+                                        for c in clusters))))
         boot_ms = (time.perf_counter() - start) * 1e3
         kinds = {(type(c.service).__name__, type(c.service.cut_detector).__name__)
                  for c in clusters}
@@ -2845,7 +2889,10 @@ async def hier_udp_cluster(dev):
             await victim.shutdown()
         fd.add_failed_nodes([v.listen_address for v in victims])
         survivors = [c for c in clusters if c not in victims]
-        check(await converged(survivors, n - crash), "the hierarchical UDP cluster did not converge")
+        check(await converged(survivors, n - crash),
+              "the hierarchical UDP cluster did not converge; (size, config id) -> nodes: "
+              + str(dict(collections.Counter((c.membership_size, c.service.view.configuration_id)
+                                        for c in survivors))))
         crash_ms = (time.perf_counter() - start) * 1e3
         counters = {}
         for c in survivors:
@@ -3237,6 +3284,7 @@ def collective_summary(ctx, rounds, n, c, tenants=1):
         by[key] = (count + 1, nbytes + r["wire_bytes"])
     violations = collective_violations(rows)
     return {
+        "rounds": rounds, "by_site_kind_class": {key: count for key, (count, _) in sorted(by.items())},
         "collectives": len(rows), "collectives_per_round": len(rows) / rounds,
         "bytes_per_round": sum(r["wire_bytes"] for r in rows) / rounds,
         "per_round_by_site_kind_class": {
@@ -3571,6 +3619,7 @@ def phase_sharded(dev, captured):
         report = {"card": card, "offset_kernel": offset_kernel_slices(dev),
                   "collective_us": collective_us(dev)}
         report["churn"] = sharded_churn(dev, make_mesh(shape=(1, 1)), captured["sharded_churn"])
+        FACTS["sharded_churn"] = report["churn"]["warmup"]["sharded"]["collectives"]
         report["scale_point"] = sharded_scale_point(dev, make_mesh(),
                                                     captured["sharded_scale_point"])
         report["fleet_wave"] = sharded_fleet(dev, captured["sharded_fleet_wave"])
@@ -3581,6 +3630,460 @@ def phase_sharded(dev, captured):
     emit({"phase": "sharded", **report})
     return {f"sharded_{key}": report[key]["launches"]
             for key in ("churn", "scale_point", "fleet_wave", "trace_rounds")}
+
+
+# -- phase 24: the entry points ----------------------------------------------
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+#: Runs a module as ``python -m`` does, in an interpreter where importing
+#: ``jax`` or the JAX package fails: a stray import fails the step.
+BLOCK_JAX = (
+    "import runpy, sys\n"
+    "sys.modules['jax'] = None\n"
+    "sys.modules['rapid_tpu'] = None\n"
+    "name = sys.argv.pop(1)\n"
+    "runpy.run_module(name, run_name='__main__', alter_sys=True)\n"
+)
+#: Phase 24's sizes: the entry points' own defaults unless named here. The
+#: K/H/L table runs 10 of its 20 reps: the cut that keeps the whole run well
+#: inside its time limit on a slow host (20 reps take ~380 s on one H100
+#: 80GB HBM3 at 700 W).
+ENTRY = dict(agents=5, chaos_seed=0, fleet=CHAOS["tenants"], fleet_seed=CHAOS["timed_seed"],
+             demo=[], boot=(2_000, 100_000), khl=["--reps", "10"], khl_cell=(6, 4, 2),
+             autotune=[], microbench=[], microbench_shapes=[[64, 100_000], [8, 1_000_000]],
+             ceiling="50,100,200", udp_rates="0,1,5,10,20",
+             audit=dict(n=HEADLINE["n"] + HEADLINE["n_join"], cohorts=HEADLINE["cohorts"],
+                        seed=4))
+#: Seconds each step may take before it fails the run.
+ENTRY_TIMEOUT = dict(agents=120, chaos=240, fleet=300, demo=300, boot=300, khl=900,
+                     autotune=300, microbench=300, ceiling=300, udp=300, audit=300, viewer=120)
+
+
+def entry_env(report=None):
+    """The environment of an entry point's process: this checkout on the
+    path, and the file its launch count goes to."""
+    from rapid_tpu_torch._cli import LAUNCH_REPORT_ENV
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (ROOT, env.get("PYTHONPATH")) if p)
+    env.pop(LAUNCH_REPORT_ENV, None)
+    if report:
+        env[LAUNCH_REPORT_ENV] = report
+    return env
+
+
+def entry_cmd(module, *args):
+    return [sys.executable, "-c", BLOCK_JAX, f"rapid_tpu_torch.{module}", *map(str, args)]
+
+
+class Entry:
+    """One entry point's process (``python -m`` with JAX blocked), started
+    at once; :meth:`result` waits for it within its own timeout and fails
+    the run on a timeout or another exit code than ``expect``."""
+
+    def __init__(self, workdir, name, module, args, timeout):
+        self.name, self.timeout = name, timeout
+        base = os.path.join(workdir, name)
+        self.report, self.out, self.err = base + ".launches.json", base + ".out", base + ".err"
+        self.start = time.perf_counter()
+        with open(self.out, "w") as out, open(self.err, "w") as err:
+            self.proc = subprocess.Popen(entry_cmd(module, *args), cwd=ROOT,
+                                         env=entry_env(self.report), stdout=out, stderr=err)
+
+    def result(self, expect=0):
+        """(standard output, delivery launches in the process, seconds)."""
+        left = self.timeout - (time.perf_counter() - self.start)
+        try:
+            rc = self.proc.wait(timeout=max(left, 1))
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+            raise RuntimeError(f"{self.name}: no exit within {self.timeout} s")
+        seconds = time.perf_counter() - self.start
+        out, err = open(self.out).read(), open(self.err).read()
+        check(rc == expect, f"{self.name} exited {rc} (wanted {expect}):\n{out[-3000:]}\n{err[-5000:]}")
+        launches = None
+        if os.path.exists(self.report):
+            launches = json.load(open(self.report))["delivery_new_bits"]
+        return out, launches, seconds
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def structural(text):
+    """Printed lines with their wall-clock numbers stripped."""
+    import re
+
+    return [re.sub(r"-?\d+\.\d+ ms", "<ms>", re.sub(r", -?\d+\.\d+\)", ", <ms>)", line))
+            for line in text.splitlines()]
+
+
+def in_process(main, argv):
+    """``main(argv)``'s exit code and standard output, in this process."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    return rc, buf.getvalue()
+
+
+def counted(captured, fn):
+    """``fn()`` with every delivery call captured into ``captured``; its
+    result and the kernel launches it made (the count zeroed just before)."""
+    from rapid_tpu_torch.ops.kernels import delivery_new_bits
+
+    torch.cuda.synchronize()
+    delivery_new_bits.launches = 0
+    with capturing(captured):
+        result = fn()
+    torch.cuda.synchronize()
+    return result, delivery_new_bits.launches
+
+
+def entry_agents(dev, workdir):
+    """(a) ``ENTRY["agents"]`` port agents on loopback TCP, their cut
+    detector and vote tally on the card: they converge to the full size, a
+    SIGKILL brings the rest to one fewer, and every survivor's
+    ``--metrics-dump`` shows the same configuration id. Returns the report
+    and the survivors' final dumps."""
+    import re
+    import shutil
+    import signal
+
+    count = ENTRY["agents"]
+    ports = free_ports(count)
+    procs, logs = {}, {}
+    size_line = re.compile(r"membership size: (\d+) \(config (-?\d+)\)")
+
+    def spawn(port):
+        logs[port] = os.path.join(workdir, f"agent-{port}.log")
+        with open(logs[port], "w") as log:
+            procs[port] = subprocess.Popen(
+                entry_cmd("examples.standalone_agent", "--listen-address", f"127.0.0.1:{port}",
+                          "--seed-address", f"127.0.0.1:{ports[0]}", "--report-interval", 0.25,
+                          "--metrics-dump", os.path.join(workdir, f"agent-{port}.json"),
+                          "--device", dev.type),
+                cwd=ROOT, env=entry_env(), stdout=log, stderr=subprocess.STDOUT)
+
+    def views(group):
+        out = []
+        for port in group:
+            found = size_line.findall(open(logs[port]).read())
+            out.append((int(found[-1][0]), int(found[-1][1])) if found else None)
+        return out
+
+    def wait(group, size):
+        deadline = time.perf_counter() + ENTRY_TIMEOUT["agents"]
+        while time.perf_counter() < deadline:
+            got = views(group)
+            if all(v and v[0] == size for v in got) and len({v[1] for v in got}) == 1:
+                return got
+            for port in group:
+                check(procs[port].poll() is None, f"agent {port} exited:\n"
+                      + open(logs[port]).read()[-3000:])
+            time.sleep(0.1)
+        raise RuntimeError(f"agents did not converge to {size}: {views(group)}")
+
+    try:
+        start = time.perf_counter()
+        spawn(ports[0])
+        wait(ports[:1], 1)
+        seed_ms = (time.perf_counter() - start) * 1e3
+        joined = time.perf_counter()
+        for port in ports[1:]:
+            spawn(port)
+        full = wait(ports, count)
+        bootstrap_ms = (time.perf_counter() - start) * 1e3
+        join_ms = (time.perf_counter() - joined) * 1e3
+        victim = ports[2]
+        procs[victim].send_signal(signal.SIGKILL)
+        procs[victim].wait()
+        killed = time.perf_counter()
+        survivors = [p for p in ports if p != victim]
+        after = wait(survivors, count - 1)
+        crash_ms = (time.perf_counter() - killed) * 1e3
+        dumps, config_ids = [], set()
+        deadline = time.perf_counter() + 10
+        for port in survivors:  # each dump is rewritten every report interval
+            path = os.path.join(workdir, f"agent-{port}.json")
+            while True:
+                snap = json.load(open(path))
+                if snap["membership_size"] == count - 1 or time.perf_counter() > deadline:
+                    break
+                time.sleep(0.1)
+            final = os.path.join(workdir, f"final-{port}.json")
+            shutil.copy(path, final)
+            dumps.append(final)
+            config_ids.add(snap["configuration_id"])
+        check(len(config_ids) == 1 and config_ids == {after[0][1]},
+              f"survivors' dumps hold configuration ids {config_ids}, logs {after}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+    return {"agents": count, "seed_ms": seed_ms, "bootstrap_ms": bootstrap_ms,
+            "join_ms": join_ms, "crash_to_convergence_ms": crash_ms,
+            "config_ids": [full[0][1], after[0][1]], "adapters": dev.type}, dumps
+
+
+def entry_chaos(dev, workdir, launches):
+    """(b) ``chaosrun run`` of every family at one seed with the replay on
+    the card, a ``replay`` of each directory, then one ``fuzz --fleet``
+    round whose tallies must equal phase 17's in-process round."""
+    from rapid_tpu_torch.sim.fuzz import FAMILIES
+
+    seed = ENTRY["chaos_seed"]
+    runs = {f: Entry(workdir, f"chaos-{f}", "tools.chaosrun",
+                     ["run", f, "--seed", seed, "--artifacts", os.path.join(workdir, f),
+                      "--device", dev.type], ENTRY_TIMEOUT["chaos"]) for f in sorted(FAMILIES)}
+    report, total = {}, 0
+    for family, entry in runs.items():
+        out, n, seconds = entry.result()
+        check(out.startswith(f"scenario {family}/{seed}: ") and "converged=True" in out
+              and "VIOLATION" not in out, f"chaosrun run {family}: {out}")
+        report[family] = {"line": out.splitlines()[0].split(", artifacts")[0], "launches": n,
+                          "seconds": seconds}
+        total += n
+    replays = {f: Entry(workdir, f"replay-{f}", "tools.chaosrun",
+                        ["replay", os.path.join(workdir, f), "--device", dev.type],
+                        ENTRY_TIMEOUT["chaos"]) for f in runs}
+    for family, entry in replays.items():
+        out, n, seconds = entry.result()
+        check("VIOLATION" not in out, f"chaosrun replay {family}: {out}")
+        report[family].update(replay_launches=n, replay_seconds=seconds)
+        total += n
+    launches["entry_chaosrun"] = total
+    check(total > 0, "no chaosrun run or replay launched the delivery kernel")
+
+    out, n, seconds = Entry(workdir, "fuzz-fleet", "tools.chaosrun",
+                            ["fuzz", "--fleet", ENTRY["fleet"], "--base-seed", ENTRY["fleet_seed"],
+                             "--out", os.path.join(workdir, "fleet"), "--device", dev.type],
+                            ENTRY_TIMEOUT["fleet"]).result()
+    want = FACTS["chaos"]
+    lines = out.splitlines()
+    expected = [f"family {f}: {want['families'][f] - want['family_violations'].get(f, 0)}"
+                f"/{want['families'][f]} clean" for f in sorted(want["families"])]
+    check(lines[:len(expected)] == expected, f"fuzz --fleet tallies {lines} differ from phase 17's")
+    check(lines[-1].startswith(f"{want['tenants']} scenarios in ")
+          and f"{want['total_cuts']} view changes" in lines[-1],
+          f"fuzz --fleet totals {lines[-1]} differ from phase 17's {want}")
+    check(n > 0, "fuzz --fleet never launched the delivery kernel")
+    launches["entry_fuzz_fleet"] = n
+    return {"families": report, "fuzz_fleet": {"lines": lines, "launches": n,
+                                               "seconds": seconds}}
+
+
+def phase_entry_points(dev, captured):
+    """Phase 24. ``captured``: name -> a list that receives the delivery
+    inputs of the in-process twins (``virtual_cluster_demo``,
+    ``bootstrap_2000`` / ``bootstrap_100000``, ``khl_sensitivity``,
+    ``fleet_khl_autotune``). Returns each route's delivery launches."""
+    import shutil
+
+    from rapid_tpu_torch.examples import (
+        bootstrap_bench, fleet_khl_autotune, khl_sensitivity, virtual_cluster_demo,
+    )
+    from rapid_tpu_torch.parallel.collective_facts import payload_class
+    from rapid_tpu_torch.utils.ledger import LedgerEvent, RunLedger
+
+    card = smi("name,power.limit")
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_entry_")
+    ledger = RunLedger(os.path.join(workdir, "ledger.jsonl"), run_id="entry_points")
+    ledger.emit(LedgerEvent.RUN_BEGIN, mode="inline", card=card)
+    launches, report, seconds = {}, {"card": card}, {}
+    started = []
+
+    def start(name, module, args, timeout):
+        entry = Entry(workdir, name, module, args, timeout)
+        started.append(entry)
+        return entry
+
+    try:
+        # The long sweep and the host-bound curves run beside the rest (h).
+        khl_args = [*ENTRY["khl"], "--device", dev.type]
+        khl = start("khl_sensitivity", "examples.khl_sensitivity", khl_args, ENTRY_TIMEOUT["khl"])
+        ceiling = start("host_scale_ceiling", "examples.host_scale_ceiling",
+                        ["--sizes", ENTRY["ceiling"], "--device", dev.type],
+                        ENTRY_TIMEOUT["ceiling"])
+        udp = start("udp", "examples.udp_loss_curve", ["--rates", ENTRY["udp_rates"]],
+                    ENTRY_TIMEOUT["udp"])
+
+        begin = time.perf_counter()
+        with ledger.stage("ramp", step="agents"):
+            report["agents"], dumps = entry_agents(dev, workdir)
+        seconds["agents"] = time.perf_counter() - begin
+
+        begin = time.perf_counter()
+        with ledger.stage("chaos", step="chaosrun"):
+            report["chaos"] = entry_chaos(dev, workdir, launches)
+        seconds["chaos"] = time.perf_counter() - begin
+
+        # (c) The demo at full size, then the same in this process.
+        begin = time.perf_counter()
+        with ledger.stage("timed_samples", step="virtual_cluster_demo"):
+            argv = [*ENTRY["demo"], "--device", dev.type]
+            out, n, _ = start("demo", "examples.virtual_cluster_demo", argv,
+                              ENTRY_TIMEOUT["demo"]).result()
+            (rc, here), n_here = counted(captured["virtual_cluster_demo"], lambda: in_process(
+                virtual_cluster_demo.main, argv))
+        check(rc == 0 and structural(out) == structural(here),
+              f"virtual_cluster_demo differs from its in-process run:\n{out}\n{here}")
+        check(n > 0 and n == n_here, f"virtual_cluster_demo: {n} launches, {n_here} in process")
+        launches["entry_demo"], launches["virtual_cluster_demo"] = n, n_here
+        report["demo"] = {"lines": out.splitlines(), "launches": n}
+        seconds["demo"] = time.perf_counter() - begin
+
+        # (d) The bootstrap at both sizes, then each in this process.
+        begin = time.perf_counter()
+        report["bootstrap"] = {}
+        for n_total in ENTRY["boot"]:
+            with ledger.stage("xl_point", step=f"bootstrap_{n_total}", n=n_total):
+                out, n, _ = start(f"bootstrap-{n_total}", "examples.bootstrap_bench",
+                                  ["--n", n_total, "--device", dev.type],
+                                  ENTRY_TIMEOUT["boot"]).result()
+                got = json.loads(out.splitlines()[-1])
+                want, n_here = counted(captured[f"bootstrap_{n_total}"], lambda: (
+                    bootstrap_bench.run_bootstrap(n_total, 64, 8, 16, 2, seed=0, device=dev)))
+            for key in ("view_changes", "unique_sizes", "rounds"):
+                check(got[key] == want[key], f"bootstrap {n_total}: {key} {got[key]}, "
+                      f"in process {want[key]}")
+            check(n_here > 0, f"bootstrap {n_total} never launched the delivery kernel")
+            launches[f"entry_bootstrap_{n_total}"], launches[f"bootstrap_{n_total}"] = n, n_here
+            report["bootstrap"][n_total] = {**got, "in_process_wall_ms": want["wall_ms"],
+                                            "launches": n}
+        seconds["bootstrap"] = time.perf_counter() - begin
+
+        # (f) The fleet autotune at its defaults, then in this process.
+        begin = time.perf_counter()
+        with ledger.stage("tenant_fleet", step="fleet_khl_autotune"):
+            argv = [*ENTRY["autotune"], "--device", dev.type]
+            out, n, _ = start("autotune", "examples.fleet_khl_autotune", argv,
+                              ENTRY_TIMEOUT["autotune"]).result()
+            (rc, here), n_here = counted(captured["fleet_khl_autotune"], lambda: in_process(
+                fleet_khl_autotune.main, argv))
+        check(rc == 0 and out == here, f"fleet_khl_autotune differs:\n{out}\n{here}")
+        check(n > 0 and n == n_here, f"fleet_khl_autotune: {n} launches, {n_here} in process")
+        launches["entry_autotune"], launches["fleet_khl_autotune"] = n, n_here
+        report["autotune"] = json.loads(out.splitlines()[0])
+        seconds["autotune"] = time.perf_counter() - begin
+
+        # (j) The collective audit on a one-rank NCCL group: phase 23's churn.
+        begin = time.perf_counter()
+        audit = ENTRY["audit"]
+        with ledger.stage("hlo_audit", step="collective_audit"):
+            out, n, _ = start("audit", "tools.collective_audit",
+                              ["--n", audit["n"], "--devices", 1, "--cohort-devices", 1,
+                               "--cohorts", audit["cohorts"], "--seed", audit["seed"],
+                               "--out", os.path.join(workdir, "audit.json"), "--device", dev.type],
+                              ENTRY_TIMEOUT["audit"]).result()
+        table = json.load(open(os.path.join(workdir, "audit.json")))
+        rows, facts = table["programs"]["convergence_loop"], FACTS["sharded_churn"]
+        by = {}
+        for r in rows:
+            key = f"{r['location']}/{r['kind']}/{payload_class(r['bytes'], audit['n'], audit['cohorts'])}"
+            by[key] = by.get(key, 0) + 1
+        check(table["ok"] and by == facts["by_site_kind_class"]
+              and table["facts"]["convergence_loop"]["rounds"] == facts["rounds"],
+              f"collective_audit's table {by} differs from phase 23's {facts['by_site_kind_class']}")
+        check(n > 0, "collective_audit never launched the delivery kernel")
+        launches["entry_collective_audit"] = n
+        report["audit"] = {"by_site_kind_class": by, "rounds": facts["rounds"],
+                           "violations": {k: len(v) for k, v in table["violations"].items()},
+                           "table": out.splitlines()}
+        seconds["audit"] = time.perf_counter() - begin
+
+        # (h) The host-bound curves.
+        begin = time.perf_counter()
+        with ledger.stage("loss_variant", step="host_scale_ceiling"):
+            out, n, _ = ceiling.result()
+        rows = [json.loads(line) for line in out.splitlines()]
+        check([r["n"] for r in rows] == [int(x) for x in ENTRY["ceiling"].split(",")]
+              and all(r["host_msgs"] > 0 and r["engine_crash_wall_ms"] >= 0 for r in rows),
+              f"host_scale_ceiling: {rows}")
+        check(n > 0, "host_scale_ceiling's engine column never launched the delivery kernel")
+        launches["entry_host_scale_ceiling"] = n
+        with ledger.stage("loss_variant", step="udp_loss_curve"):
+            out, _, _ = udp.result()
+        curve = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+        check([r["loss_pct"] for r in curve] == [float(x) for x in ENTRY["udp_rates"].split(",")],
+              f"udp_loss_curve: {curve}")
+        report["host_scale_ceiling"], report["udp_loss_curve"] = rows, curve
+        seconds["host_curves"] = time.perf_counter() - begin
+
+        # (e) The K/H/L table, and one of its cells again in this process.
+        begin = time.perf_counter()
+        with ledger.stage("stretch_point", step="khl_sensitivity"):
+            out, n, khl_seconds = khl.result()
+            args = khl_sensitivity.parser().parse_args(khl_args)
+            h, l, f = ENTRY["khl_cell"]
+            line, n_here = counted(captured["khl_sensitivity"],
+                                   lambda: khl_sensitivity.cell(args, h, l, f, dev))
+        lines = out.splitlines()
+        cells = khl_sensitivity.CELLS
+        check(lines[:2] == khl_sensitivity.header(args) and len(lines) == 2 + len(cells),
+              f"khl_sensitivity printed {lines[:3]}...")
+        check(lines[2 + cells.index((h, l, f))] == line,
+              f"khl_sensitivity cell {(h, l, f)}: {line} in process, table has "
+              f"{lines[2 + cells.index((h, l, f))]}")
+        check(n > 0 and n_here > 0, "khl_sensitivity never launched the delivery kernel")
+        launches["entry_khl_sensitivity"], launches["khl_sensitivity"] = n, n_here
+        report["khl"] = {"table": lines, "launches": n, "seconds": khl_seconds,
+                         "cell": [h, l, f], "cell_launches": n_here}
+        seconds["khl"] = time.perf_counter() - begin
+
+        # (g) The microbenchmark, alone on the card.
+        begin = time.perf_counter()
+        with ledger.stage("profile", step="kernel_microbench"):
+            out, n, _ = start("microbench", "examples.kernel_microbench",
+                              [*ENTRY["microbench"], "--device", dev.type],
+                              ENTRY_TIMEOUT["microbench"]).result()
+        rows = [json.loads(line) for line in out.splitlines()]
+        check([r["delivery_shape"] for r in rows[1:]] == ENTRY["microbench_shapes"]
+              and all(r["bit_exact"] is True and r["kernel_ms"] > 0 for r in rows[1:]),
+              f"kernel_microbench: {rows}")
+        check(n > 0, "kernel_microbench never launched the delivery kernel")
+        launches["entry_kernel_microbench"] = n
+        report["microbench"] = rows
+        seconds["microbench"] = time.perf_counter() - begin
+        ledger.emit(LedgerEvent.RUN_END, outcome="completed")
+        ledger.close()
+
+        # (i) The viewers over (a)'s dumps, (b)'s artifacts and the ledger.
+        begin = time.perf_counter()
+        viewers = {}
+        for name, module, args, marker in (
+            ("traceview_agents", "tools.traceview",
+             [*dumps, "--chrome", os.path.join(workdir, "agents.trace.json")], "view_change"),
+            ("clustertop_agents", "tools.clustertop", [*dumps, "--once"],
+             f"{len(dumps)} node(s)"),
+            ("traceview_chaos", "tools.traceview",
+             [os.path.join(workdir, "crash_during_join"), "--chrome",
+              os.path.join(workdir, "chaos.trace.json")], "fault:"),
+            ("perfview_ledger", "tools.perfview",
+             [os.path.join(workdir, "ledger.jsonl"), "--chrome",
+              os.path.join(workdir, "ledger.trace.json")], "outcome: completed"),
+        ):
+            out, _, _ = start(name, module, args, ENTRY_TIMEOUT["viewer"]).result()
+            check(marker in out, f"{name} printed no {marker!r}:\n{out[-2000:]}")
+            viewers[name] = {"lines": len(out.splitlines()), "head": out.splitlines()[:3]}
+        for name in ("agents", "chaos", "ledger"):
+            chrome = json.load(open(os.path.join(workdir, f"{name}.trace.json")))
+            check(chrome["traceEvents"], f"the {name} Chrome trace is empty")
+        check("configs: 1 (agreement)" in open(os.path.join(
+            workdir, "clustertop_agents.out")).read(), "clustertop: the survivors disagree")
+        report["viewers"] = viewers
+        seconds["viewers"] = time.perf_counter() - begin
+    finally:
+        for entry in started:
+            entry.stop()
+        shutil.rmtree(workdir, ignore_errors=True)
+    emit({"phase": "entry_points", **report, "launches": launches, "seconds": seconds})
+    return launches
 
 
 def main(argv=None) -> int:
@@ -3660,6 +4163,12 @@ def main(argv=None) -> int:
     launches.update(timed("sharded", phase_sharded, sharded_rounds))
     captured.update(timed("sharded_kernel_paths", phase_kernel_paths, sharded_rounds))
     del sharded_rounds
+    entry_rounds = {name: [] for name in (
+        "virtual_cluster_demo", *(f"bootstrap_{n}" for n in ENTRY["boot"]), "khl_sensitivity",
+        "fleet_khl_autotune")}
+    launches.update(timed("entry_points", phase_entry_points, entry_rounds))
+    captured.update(timed("entry_points_kernel_paths", phase_kernel_paths, entry_rounds))
+    del entry_rounds
     emit({"phase": "timing", "seconds": seconds, "total_seconds": time.perf_counter() - start,
           "launch_us_after": launch})
 

@@ -222,6 +222,22 @@ def _deliver_alerts(cfg: EngineConfig, state: EngineState, fire_round, blocked_r
     return _narrow.keep_bits(words, state.report_bits.dtype)
 
 
+def _cohort_cut_detection(cfg: EngineConfig, state: EngineState, new_bits, heard_down,
+                          select: bool = False, ctx=None):
+    """The engine's cut-detection seam (the JAX package's
+    ``_cohort_cut_detection``): C independent watermark detectors over the
+    ``[t, c, n]`` lanes, through
+    :func:`~rapid_tpu_torch.ops.cut_detection.cohort_watermark_pass`; this
+    wrapper only adapts the state. ``select`` and ``ctx`` are the pass's:
+    ``select=True`` computes the implicit-invalidation pass with no host
+    read, ``ctx`` runs it on a rank's shard."""
+    return cohort_watermark_pass(
+        state.report_bits, new_bits, state.seen_down, state.released, state.announced,
+        state.alive | state.join_pending, state.inval_obs, heard_down, cfg.h, cfg.l, cfg.k,
+        select=select, ctx=ctx,
+    )
+
+
 def _rotation_seed_w(epoch_w: torch.Tensor, j: int) -> torch.Tensor:
     """Per-racer hash-stream seed for coordinator rotation (widened)."""
     return _u32.add(_u32.mul(epoch_w, 0x9E3779B1), (0x5BD1E995 * (j + 1)) & _u32.MASK)
@@ -449,13 +465,8 @@ def _compute_round(
         heard_down = ctx.max(heard_down, _NODES, "heard down", sharded=_COHORT)
 
     # 3. Cut detection per cohort.
-    subject_mask = state.alive | state.join_pending
     report_bits, released, announced, seen_down, proposed_now, prop_masks = (
-        cohort_watermark_pass(
-            state.report_bits, new_bits, state.seen_down, state.released, state.announced,
-            subject_mask, state.inval_obs, heard_down, cfg.h, cfg.l, cfg.k,
-            select=select, ctx=ctx,
-        )
+        _cohort_cut_detection(cfg, state, new_bits, heard_down, select=select, ctx=ctx)
     )
     prop_hi_new, prop_lo_new = masked_set_hash(
         state.id_hi[:, None, :], state.id_lo[:, None, :], prop_masks, ctx, _COHORT
@@ -590,7 +601,7 @@ def _compute_round(
     # scalars reuse what the round computed (``stalled`` is the conflict
     # flag: announced and no fast decision).
     active, invalidated = telemetry_cut_masks(
-        state.report_bits, new_bits, report_bits, subject_mask, cfg.h, cfg.l
+        state.report_bits, new_bits, report_bits, state.alive | state.join_pending, cfg.h, cfg.l
     )
     tally_at_decision = torch.where(decided, tally.max_count, 0)
     bins = torch.arange(TELEMETRY_BUCKETS, dtype=torch.int32, device=dev)

@@ -15,11 +15,19 @@
   run ledger alone;
   ``rapid_tpu_torch.interop`` and its protobuf conversions import with
   ``grpc`` blocked.
+- The command lines and examples (``rapid_tpu_torch.tools``,
+  ``rapid_tpu_torch.examples``): no source names ``jax`` or ``rapid_tpu``
+  in an import, even inside a function; each one's ``--help`` exits 0
+  through ``python -m`` in an interpreter where importing ``jax`` or
+  ``rapid_tpu`` fails; and ``--device cuda`` without a card raises before
+  any work is done on the CPU.
 - The delivery wrapper raises on inputs its kernel does not take instead of
   quietly taking the plain version.
 """
 
+import ast
 import json
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -247,3 +255,104 @@ def test_delivery_wrapper_raises_instead_of_falling_back(fault):
         blocked = blocked[:2]
     with pytest.raises((TypeError, ValueError)):
         delivery_new_bits(blocked, age, epoch, 3, 5, 0, 1000)
+
+
+# -- the command lines and examples ------------------------------------------
+
+ENTRY_POINTS = [f"rapid_tpu_torch.examples.{name}" for name in (
+    "agent_grpc_transport", "bootstrap_bench", "fleet_khl_autotune", "host_scale_ceiling",
+    "kernel_microbench", "khl_sensitivity", "standalone_agent", "udp_loss_curve",
+    "virtual_cluster_demo",
+)] + [f"rapid_tpu_torch.tools.{name}" for name in (
+    "chaosrun", "clustertop", "collective_audit", "perfview", "traceview",
+)]
+
+_HELP_PROBE = """
+import runpy, sys
+sys.modules["jax"] = None  # import jax raises ImportError
+sys.modules["rapid_tpu"] = None
+name = sys.argv.pop(1)  # the rest is the module's own argv, as under python -m
+try:
+    runpy.run_module(name, run_name="__main__", alter_sys=True)
+except SystemExit as exc:
+    code = exc.code
+bad = sorted(m for m, v in sys.modules.items()
+             if v is not None and m.split(".")[0] in ("jax", "jaxlib", "rapid_tpu"))
+print("RESULT", code, bad)
+"""
+
+
+@pytest.fixture(scope="module")
+def help_runs():
+    """``--help`` of every entry point, run side by side: name -> (exit
+    code, modules of JAX or the JAX package loaded, output)."""
+    procs = {
+        name: subprocess.Popen([sys.executable, "-c", _HELP_PROBE, name, "--help"], cwd=REPO,
+                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                               env=dict(os.environ, PYTHONPATH=str(REPO)))
+        for name in ENTRY_POINTS
+    }
+    out = {}
+    for name, proc in procs.items():
+        text, _ = proc.communicate(timeout=120)
+        result = [ln for ln in text.splitlines() if ln.startswith("RESULT ")]
+        out[name] = (result[0].split(" ", 2)[1:] if result else None, text)
+    return out
+
+
+@pytest.mark.parametrize("name", ENTRY_POINTS)
+def test_entry_point_help_exits_0_with_jax_blocked(help_runs, name):
+    result, text = help_runs[name]
+    assert result == ["0", "[]"], text
+    assert "usage:" in text and "--help" in text
+
+
+def _imported_names(source: str):
+    for node in ast.walk(ast.parse(source)):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("name", ENTRY_POINTS)
+def test_entry_point_source_imports_no_jax_and_no_rapid_tpu(name):
+    source = (REPO / (name.replace(".", "/") + ".py")).read_text()
+    roots = {imported.split(".")[0] for imported in _imported_names(source)}
+    assert not roots & {"jax", "jaxlib", "rapid_tpu"}, roots
+    assert "force_platform" not in source
+    assert "rapid_tpu_torch" in roots
+
+
+_NO_CARD = {
+    "tools.chaosrun": ["run", "crash_during_join"],
+    "tools.collective_audit": ["--n", "64", "--devices", "1"],
+    "examples.standalone_agent": ["--listen-address", "127.0.0.1:1",
+                                  "--seed-address", "127.0.0.1:1"],
+    "examples.virtual_cluster_demo": ["--small"],
+    "examples.bootstrap_bench": ["--n", "100"],
+    "examples.khl_sensitivity": ["--n", "100", "--reps", "1"],
+    "examples.fleet_khl_autotune": ["--n", "64"],
+    "examples.host_scale_ceiling": ["--sizes", "8"],
+    "examples.kernel_microbench": ["--n", "100"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(_NO_CARD))
+def test_entry_point_asked_for_cuda_without_a_card_raises(name, monkeypatch):
+    import importlib
+
+    from rapid_tpu_torch.models import virtual_cluster
+    from rapid_tpu_torch.sim import fuzz
+
+    def ran(*args, **kwargs):
+        raise AssertionError("work ran on the CPU after cuda was asked for")
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for target, attr in ((virtual_cluster.VirtualCluster, "create"),
+                         (virtual_cluster.VirtualCluster, "from_endpoints"),
+                         (fuzz, "run_schedule")):
+        monkeypatch.setattr(target, attr, ran)
+    module = importlib.import_module(f"rapid_tpu_torch.{name}")
+    with pytest.raises(RuntimeError, match="CUDA was asked for but no card"):
+        module.main([*_NO_CARD[name], "--device", "cuda"])
