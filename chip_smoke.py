@@ -242,6 +242,20 @@ exits non-zero:
    group at phase 23's churn (102,500 slots, C=64, seed 4, the 2-D mesh
    (1, 1)): its loop's collectives by site, kind and class equal phase
    23's. The captured rounds then go through phase 10's checks and timings.
+25. program_facts: the port's static gate on the card machine. (a)
+   ``python -m rapid_tpu_torch.tools.staticcheck`` in a subprocess: 0
+   findings, with its seconds. (b) The registry of the 13 engine entry
+   points (``tools/analysis/device_program.py``, JAX's audit shapes, the
+   sharded ones on a one-rank NCCL group) on the card: every
+   device-independent fact (reads, uploads, bytes read back, delivery
+   calls, collectives, lane bytes, lanes in place, the soak blocks) equals
+   the committed ``program.lock.json``; its delivery rounds are captured.
+   (c) Each entry point once more under torch.profiler: CUDA kernels and
+   delivery launches per call, beside the lock's CPU aten-op count. (d)
+   ``engine_step`` once at phase 4's churn (N=100,000 members in 102,500
+   slots, K=10, H=9, L=4, C=64, spread 2): its reads, uploads and
+   collectives per round equal the audit shape's ``step``. The captured
+   rounds go through phase 10's checks as route ``program_facts``.
 
 A kernel's bound (``delivery_bound``) is the larger of its bytes (each
 input once, the output once) over the HBM rate and the delay draws its
@@ -253,7 +267,8 @@ paths 4, 5, 8, 12 (churn and 1M), 13, 14, 15 (each stream), 16 (each drill
 with its twin), 17 (the timed fleet), 18 (the three churns) and 19 (each
 scraped path and the profiled churn) and 21 (a: the grid's ``check_all``
 replays) and 22 (f) and 23 (each of b-e, each side) and 24 (each
-in-process twin; each process of phase 24 starts from 0) and read just after;
+in-process twin; each process of phase 24 starts from 0) and 25 (b and
+d) and read just after;
 phase 20 and phase 21's (b) and (c) zero it and must leave it at 0. Then the kernels
 line (with ptxas's facts), the card's
 name and power limit from ``nvidia-smi``, and as the last line
@@ -3580,6 +3595,8 @@ def sharded_trace(dev, mesh):
         got.setdefault(side, dict(launches=launches, lanes={
             **plane_lanes(state), **{f"telem.{k}": v for k, v in plane_lanes(telem).items()},
             **{f"ring.{k}": v for k, v in plane_lanes(ring).items()}},
+            # telemetry-fetch-ok: comparison boundary — each side's digests are
+            # read once, after its run, to hold the sides against each other.
             digests=(telemetry_digest(_one(telem)).cpu().numpy(),
                      trace_digest(_one(ring)).cpu().numpy())))
         return {"ms": ms}
@@ -4086,6 +4103,94 @@ def phase_entry_points(dev, captured):
     return launches
 
 
+def phase_program_facts(dev, captured):
+    """Phase 25. ``captured`` receives the delivery rounds of (b) and (d)."""
+    import torch.distributed as dist
+
+    from rapid_tpu_torch.models.virtual_cluster import engine_step
+    from rapid_tpu_torch.ops.kernels import delivery_new_bits
+    from rapid_tpu_torch.tools.analysis import device_program as dp
+
+    card = smi("name,power.limit")
+    # (a) The static gate, as a user runs it, on this machine's install.
+    start = time.perf_counter()
+    gate = subprocess.run([sys.executable, "-m", "rapid_tpu_torch.tools.staticcheck"],
+                          cwd=ROOT, env=entry_env(), capture_output=True, text=True, timeout=900)
+    gate_s = time.perf_counter() - start
+    tail = gate.stdout.strip().splitlines()[-1:] or [""]
+    check(gate.returncode == 0 and tail[0] == "staticcheck: 0 finding(s)",
+          f"the static gate failed on the card machine:\n{gate.stdout[-4000:]}{gate.stderr[-2000:]}")
+
+    # (b) Every device-independent fact of the registry on the card equals
+    # the committed lock.
+    locked, problems = dp.read_lock()
+    check(locked is not None, f"program lock unreadable: {problems}")
+    delivery_new_bits.launches = 0
+    start = time.perf_counter()
+    with capturing(captured):
+        drift = dp.check_lock_against(locked, dev.type)
+    torch.cuda.synchronize(dev)
+    facts_s = time.perf_counter() - start
+    launches = delivery_new_bits.launches
+    check(not drift, "program facts on the card differ from the lock:\n"
+          + "\n".join(str(f) for f in drift))
+    facts = dp.collect_facts(dev.type)
+    # The entry points' calls, and one a round of the two soaks.
+    calls = sum(entry["delivery_calls"] for entry in facts.values())
+    soaks = 2 * dp.QUIESCENT_SOAK_ROUNDS
+    check(launches == calls + soaks, f"registry on the card: {launches} delivery launches for "
+          f"{calls} calls of its entry points and {soaks} soak rounds")
+
+    # (c) CUDA kernels and delivery launches per call of each entry point,
+    # the group's first collective (its communicator's setup) made before.
+    per_call = {}
+    with dp.one_rank_group(dev.type):
+        dist.all_reduce(torch.zeros(1, device=dev))
+        for name, build in dp.registry(dev).items():
+            spec = build()
+            torch.cuda.synchronize(dev)
+            delivery_new_bits.launches = 0
+            _, prof = profile_run(dev, spec["call"])
+            got = delivery_new_bits.launches
+            check(got == facts[name]["delivery_calls"],
+                  f"{name}: {got} delivery launches, {facts[name]['delivery_calls']} calls")
+            per_call[name] = {"cuda_kernels": prof["device_kernels"], "delivery_launches": got,
+                              "device_ms": prof["device_ms"], "wall_ms": prof["wall_ms"],
+                              "cpu_aten_ops": locked["entrypoints"][name]["aten_ops"]}
+
+    # (d) The slice's path at full width: one engine step of the churn.
+    n, n_join, n_crash = HEADLINE["n"], HEADLINE["n_join"], HEADLINE["n_crash"]
+    vc, _ = churn_cluster(n, n_join, n_crash, HEADLINE["cohorts"], 25, dev)
+    spec = {"call": lambda: engine_step(vc.cfg, vc.state, vc.faults),
+            "inputs": {"state": vc.state, "faults": vc.faults},
+            "outputs": lambda res: {"state": res[0]}, "context": None, "tenants": 1}
+    torch.cuda.synchronize(dev)
+    delivery_new_bits.launches = 0
+    with capturing(captured):
+        full = dp.measure(spec)
+    torch.cuda.synchronize(dev)
+    full_launches = delivery_new_bits.launches
+    audit = facts["step"]
+    for key in ("read", "upload"):
+        check(full["transfers"][key] == audit["transfers"][key],
+              f"full-width step {key}s {full['transfers'][key]} != the audit shape's "
+              f"{audit['transfers'][key]}")
+    check(full["collectives"] == audit["collectives"],
+          f"full-width step collectives {full['collectives']} != {audit['collectives']}")
+    check(full_launches == full["delivery_calls"] == 1,
+          f"full-width step: {full_launches} launches, {full['delivery_calls']} calls")
+    out = {"phase": "program_facts", "card": card, "gate_seconds": gate_s,
+           "gate_stdout_tail": tail[0], "facts_seconds": facts_s,
+           "registry_delivery_launches": launches, "per_call": per_call,
+           "full_step": {"n": n, "n_slots": n + n_join, "k": HEADLINE["k"], "h": 9, "l": 4,
+                         "cohorts": HEADLINE["cohorts"], "spread": HEADLINE["spread"],
+                         "transfers": full["transfers"], "collectives": full["collectives"],
+                         "aten_ops": full["aten_ops"], "delivery_launches": full_launches,
+                         "memory": full["memory"]}}
+    emit(out)
+    return launches + full_launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--parent", metavar="DIR",
@@ -4169,6 +4274,11 @@ def main(argv=None) -> int:
     launches.update(timed("entry_points", phase_entry_points, entry_rounds))
     captured.update(timed("entry_points_kernel_paths", phase_kernel_paths, entry_rounds))
     del entry_rounds
+    program_rounds = []
+    launches["program_facts"] = timed("program_facts", phase_program_facts, program_rounds)
+    captured.update(timed("program_facts_kernel_paths", phase_kernel_paths,
+                          {"program_facts": program_rounds}))
+    del program_rounds
     emit({"phase": "timing", "seconds": seconds, "total_seconds": time.perf_counter() - start,
           "launch_us_after": launch})
 

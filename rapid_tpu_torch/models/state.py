@@ -626,7 +626,7 @@ def validate_envelope(cfg: EngineConfig, state: EngineState) -> None:
                 )
     real = state.fire_round[state.fire_round != FIRE_NEVER]
     if real.numel():
-        low, high = int(real.min()), int(real.max())
+        low, high = int(real.min()), int(real.max())  # host-read-ok: envelope check on request, not a round's read
         if low < 0 or high > ROUND_ENVELOPE:
             raise ValueError(
                 f"fire_round carries a non-sentinel value outside "

@@ -521,7 +521,8 @@ def _compute_round(
         fb_decided = fallback_due & fb_decided
         chosen = torch.where(fallback_due, chosen, -1)
     else:
-        fast_host, fallback_host = _host.read(torch.stack([fast_decided, fallback_due]).view(-1))
+        # The eager round's branch point (JAX's lax.cond predicate), read once a round.
+        fast_host, fallback_host = _host.read(torch.stack([fast_decided, fallback_due]).view(-1))  # host-sync-ok: branch point
         if fallback_host:
             with _gate(ctx):
                 *cp, fb_decided, chosen = _classic_attempt(
@@ -537,7 +538,7 @@ def _compute_round(
     if select:
         decided_out = decided
     else:
-        decided_out = fast_host or (fallback_host and _host.read(fb_decided.view(-1))[0])
+        decided_out = fast_host or (fallback_host and _host.read(fb_decided.view(-1))[0])  # host-sync-ok: the classic attempt's outcome, read only in a round that ran it
     winner_cohort = torch.where(
         fast_decided,
         torch.argmax(
@@ -814,7 +815,7 @@ def run_until_membership(
     JAX wave)."""
     state, faults, telem, trace = _one(state), _one(faults), _one(telem), _one(trace)
     edge_masks = _edge_masks(cfg, state, faults, ctx)
-    members = _host.read(state.n_members)[0]
+    members = _host.read(state.n_members)[0]  # host-sync-ok: the wave loop's predicate (JAX's while_loop condition)
     steps, cuts, stalled, sizes = 0, 0, False, []
     while not (
         (members == target and cuts >= min_cuts)
@@ -833,7 +834,7 @@ def run_until_membership(
             with _loop(ctx), _gate(ctx):
                 state = apply_view_change_impl(cfg, state, winner, ctx)
                 edge_masks = _edge_masks(cfg, state, faults, ctx)
-            members = _host.read(state.n_members)[0]
+            members = _host.read(state.n_members)[0]  # host-sync-ok: the wave loop's predicate after a cut
             sizes.append(members)
             cuts += 1
         stalled = not decided
@@ -1247,12 +1248,15 @@ class VirtualCluster(DispatchSeam):
         host already waits for the device (:meth:`sync`, a stream's
         drain)."""
         if self.telem is not None:
+            # telemetry-fetch-ok: sync barrier — the driver is already paying a
+            # blocking device round trip here.
             digest = telemetry_digest(_one(self.telem))[0]
             self._account_d2h(digest.nbytes)
             self._activity = engine_telemetry.activity_summary(
                 _host.read(digest), self.cfg.n, self.cfg.c
             )
         if self.trace_ring is not None:
+            # telemetry-fetch-ok: sync barrier — same blocking round trip.
             digest = trace_digest(_one(self.trace_ring))[0]
             self._account_d2h(digest.nbytes)
             self._trace = engine_telemetry.trace_summary(_host.read(digest), self.cfg.trace)

@@ -29,7 +29,14 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from rapid_tpu_torch import _host
-from rapid_tpu_torch.parallel.collectives import classify_location  # noqa: F401 — re-exported
+from rapid_tpu_torch.parallel.collectives import classify_location
+
+__all__ = [
+    "COLLECTIVE_KINDS", "DTYPE_BITS", "PAYLOAD_CLASS_RANK", "audit_collectives",
+    "classify_location", "collective_violations", "count_transfer_ops",
+    "groups_cross_blocks", "input_output_aliases", "payload_class", "round_sequence",
+    "shape_bytes", "source_of",
+]
 
 COLLECTIVE_KINDS = (
     "all-reduce",

@@ -117,7 +117,7 @@ class CollectiveContext:
         finally:
             self._gated -= 1
 
-    def _record(self, kind, op, axis, wire, nbytes, logical, label):
+    def _log_collective(self, kind, op, axis, wire, nbytes, logical, label):
         self.log.append({
             "round": self.round, "kind": kind, "op": op, "axis": axis,
             "dtype": str(wire.dtype).replace("torch.", ""), "shape": tuple(wire.shape),
@@ -144,7 +144,7 @@ class CollectiveContext:
         for axis in present:
             dist.all_reduce(wire, op=_OPS[op], group=self.groups[axis])
             nbytes = wire.numel() * wire.element_size()
-            self._record("all-reduce", op, axis, wire, nbytes, nbytes * self._scale(sharded), label)
+            self._log_collective("all-reduce", op, axis, wire, nbytes, nbytes * self._scale(sharded), label)
         return wire.reshape(x.shape).to(x.dtype)
 
     def sum(self, x, axes, label, sharded=()):
@@ -173,7 +173,7 @@ class CollectiveContext:
         nbytes = out.numel() * out.element_size()
         logical = nbytes * self._scale(sharded) if logical_bytes is None \
             else logical_bytes * self._scale(())
-        self._record("all-gather", None, axis, wire, nbytes, logical, label)
+        self._log_collective("all-gather", None, axis, wire, nbytes, logical, label)
         return out.to(x.dtype)
 
     def assemble_cohorts(self, x, label):

@@ -147,7 +147,7 @@ def make_mesh(
         raise RuntimeError("no process group: call parallel.multihost.initialize_multihost first")
     ranks = list(devices) if devices is not None else list(range(dist.get_world_size()))
     if shape is None:
-        return DeviceMesh(device_type, torch.tensor(ranks), mesh_dim_names=(NODE_AXIS,))
+        return DeviceMesh(device_type, torch.tensor(ranks), mesh_dim_names=(NODE_AXIS,))  # device-ok: DeviceMesh takes its ranks as a host tensor
     if len(shape) == 2:
         axis_names: Tuple[str, ...] = (COHORT_AXIS, NODE_AXIS)
     elif len(shape) == 3:
@@ -163,7 +163,7 @@ def make_mesh(
         total *= d
     if total != len(ranks):
         raise ValueError(f"mesh shape {shape} needs {total} devices, got {len(ranks)}")
-    return DeviceMesh(device_type, torch.tensor(ranks).reshape(shape), mesh_dim_names=axis_names)
+    return DeviceMesh(device_type, torch.tensor(ranks).reshape(shape), mesh_dim_names=axis_names)  # device-ok: DeviceMesh takes its ranks as a host tensor
 
 
 def match_partition_rules(

@@ -142,7 +142,7 @@ def resume(
     from rapid_tpu_torch.serving.supervisor import Supervisor
     from rapid_tpu_torch.tenancy.fleet import TenantFleet
 
-    read_clock = clock if clock is not None else time.monotonic
+    read_clock = clock if clock is not None else time.monotonic  # wall-clock-ok: default MTTR clock when none injected
     t0 = read_clock()
     path, loaded, corrupt = latest_valid_checkpoint(checkpoint_dir, device)
     if ledger is not None:

@@ -300,7 +300,7 @@ class Ticket:
 
     def wait(self) -> None:
         if self._event is not None:
-            self._event.synchronize()
+            self._event.synchronize()  # host-sync-ok: the explicit fetch boundary
 
 
 class StreamDriver:
@@ -335,7 +335,7 @@ class StreamDriver:
         #: Injected timing source (seconds; monotonic). Every latency/wall
         #: decision below reads THIS, so a supervisor (or a test) owns time;
         #: the default is the process clock.
-        self._clock = clock if clock is not None else time.perf_counter
+        self._clock = clock if clock is not None else time.perf_counter  # wall-clock-ok: default timing source when no supervisor injects one
         #: Injected blocking-wait seam: ``(budget_phase, wave_index, ticket)
         #: -> None``. The supervision tier (serving/supervisor.py) installs
         #: its deadline-bounded waiter here; the default waits
@@ -367,7 +367,7 @@ class StreamDriver:
                 state = target.state
                 # A copy: the mirror is mutated per wave.
                 self._inadmissible = (
-                    (state.alive | state.join_pending | state.retired).cpu().numpy().copy()
+                    (state.alive | state.join_pending | state.retired).cpu().numpy().copy()  # host-sync-ok: one pre-stream lifecycle snapshot
                 )
             target._account_d2h(int(self._inadmissible.nbytes))
         #: (wave index, submit clock reading, completion ticket).
@@ -649,8 +649,8 @@ class StreamDriver:
                 serving = np.ones(epoch.shape, dtype=bool)
                 serving[list(quarantined)] = False
                 self.target._account_h2d(serving)
-                epoch = torch.where(torch.from_numpy(serving).to(epoch.device), epoch, 0)
-            total = int(_host.read(epoch.sum()))
+                epoch = torch.where(torch.from_numpy(serving).to(epoch.device), epoch, 0)  # upload-ok: at the fetch boundary, the read below waits anyway
+            total = int(_host.read(epoch.sum()))  # host-sync-ok: fetch boundary
         self.target._account_d2h(4)
         return total
 

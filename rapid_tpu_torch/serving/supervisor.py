@@ -206,7 +206,7 @@ class Supervisor:
         self._ledger_stage = ledger_stage
         #: Injected decision clock (seconds, monotonic) and sleep — the
         #: supervision tier's ONLY time sources; tests drive fake ones.
-        self._clock = clock if clock is not None else time.monotonic
+        self._clock = clock if clock is not None else time.monotonic  # wall-clock-ok: default decision clock when none injected
         self._sleep = sleep if sleep is not None else time.sleep
         self.driver = StreamDriver(
             target, rounds_per_wave=rounds_per_wave, depth=depth,

@@ -74,11 +74,11 @@ def sweep_khl(
     decided_round = np.full(b, -1, dtype=np.int64)
     for round_idx in range(max_rounds):
         events = fleet.step()
-        decided = events.decided.cpu().numpy()
+        decided = events.decided.cpu().numpy()  # host-read-ok: the sweep's per-round decision record
         fresh = decided & (decided_round < 0)
         if fresh.any():
             decided_round[fresh] = round_idx + 1
-            first_winner[fresh] = events.winner_mask.cpu().numpy()[fresh]
+            first_winner[fresh] = events.winner_mask.cpu().numpy()[fresh]  # host-read-ok: first winners, once per tenant
         if (decided_round >= 0).all():
             break
 

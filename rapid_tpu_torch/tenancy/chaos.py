@@ -475,7 +475,7 @@ def run_fleet(
         _restore_trace_rings(fleet, scenarios)
 
     if fleet is not None:
-        alive = fleet.state.alive.cpu().numpy()
+        alive = fleet.state.alive.cpu().numpy()  # host-read-ok: the run's final membership for the oracles
         fleet._account_d2h(alive.nbytes)
     else:
         alive = np.stack([s.vc.alive_mask for s in scenarios])

@@ -184,7 +184,7 @@ def fleet_run_to_decision(
     winner = torch.zeros((t, n), dtype=torch.bool, device=dev)
     while True:
         running = ~decided & (steps < max_steps)
-        if not _host.read(running.any()):
+        if not _host.read(running.any()):  # host-sync-ok: the decision loop's predicate (JAX's while_loop condition)
             break
         round_state, now, won, _, round_telem, round_trace = _compute_round(
             tcfg, state, faults, edge_masks, select=True, telem=telem, trace=trace
@@ -356,7 +356,7 @@ def tenant_health(cfg: EngineConfig, state: EngineState) -> torch.Tensor:
 
 
 def _np(x: torch.Tensor) -> np.ndarray:
-    return x.cpu().numpy()
+    return x.cpu().numpy()  # host-read-ok: the fleet's host reports and scans, outside any round
 
 
 class TenantFleet(DispatchSeam):
@@ -614,6 +614,8 @@ class TenantFleet(DispatchSeam):
         """Fetch the stacked digests, one counted read each (``[t, 18]``,
         and ``[t, 2 + 9R]`` for the rings), and decode every tenant's."""
         if self.telem is not None:
+            # telemetry-fetch-ok: host-sync boundary — the caller is already
+            # paying a blocking device round trip here.
             digest = fleet_telemetry_digest(self.telem)
             self._account_d2h(digest.nbytes)
             digests = _host.read(digest)
@@ -621,6 +623,8 @@ class TenantFleet(DispatchSeam):
                 engine_telemetry.activity_summary(d, self.cfg.n, self.cfg.c) for d in digests
             ]
         if self.trace_ring is not None:
+            # telemetry-fetch-ok: same host-sync boundary — one stacked
+            # [t, 2 + 9R] digest fetch decodes every tenant's ring.
             digest = fleet_trace_digest(self.trace_ring)
             self._account_d2h(digest.nbytes)
             digests = _host.read(digest)

@@ -356,3 +356,45 @@ def test_entry_point_asked_for_cuda_without_a_card_raises(name, monkeypatch):
     module = importlib.import_module(f"rapid_tpu_torch.{name}")
     with pytest.raises(RuntimeError, match="CUDA was asked for but no card"):
         module.main([*_NO_CARD[name], "--device", "cuda"])
+
+
+# -- the static-analysis tier ------------------------------------------------
+
+ANALYSIS_MODULES = sorted(
+    p.stem for p in (REPO / "rapid_tpu_torch" / "tools" / "analysis").glob("*.py")
+)
+
+_ANALYSIS_PROBE = """
+import importlib, sys
+sys.modules["jax"] = None  # import jax raises ImportError
+sys.modules["rapid_tpu"] = None
+sys.modules["tools"] = None
+import rapid_tpu_torch.tools.staticcheck
+for name in sys.argv[1:]:
+    importlib.import_module(f"rapid_tpu_torch.tools.analysis.{name}")
+bad = sorted(m for m, v in sys.modules.items()
+             if v is not None and m.split(".")[0] in ("jax", "jaxlib", "rapid_tpu", "tools"))
+print("torch" in sys.modules, bad)
+"""
+
+
+def test_analysis_tier_imports_no_jax_rapid_tpu_or_jax_tools():
+    # Every module of the tier imports with jax, rapid_tpu and JAX's
+    # tools package blocked, and only device_program's functions bring in
+    # torch (lazily): importing the tier alone loads no torch.
+    out = subprocess.run(
+        [sys.executable, "-c", _ANALYSIS_PROBE, *ANALYSIS_MODULES], cwd=REPO,
+        capture_output=True, text=True, check=True,
+        env=dict(os.environ, PYTHONPATH=str(REPO)),
+    ).stdout.strip()
+    assert out == "False []", out
+
+
+@pytest.mark.parametrize("name", ANALYSIS_MODULES + ["staticcheck"])
+def test_analysis_source_imports_no_jax_rapid_tpu_or_jax_tools(name):
+    sub = "tools" if name == "staticcheck" else "tools/analysis"
+    source = (REPO / "rapid_tpu_torch" / sub / f"{name}.py").read_text()
+    roots = {imported.split(".")[0] for imported in _imported_names(source)}
+    assert not roots & {"jax", "jaxlib", "rapid_tpu", "tools", "analysis"}, roots
+    if name != "device_program":
+        assert "torch" not in roots, name
