@@ -229,7 +229,7 @@ exits non-zero:
    lines but for the times. (d) ``bootstrap_bench`` at N=2,000 and
    100,000, and ``run_bootstrap`` in this process, captured: equal view
    changes, sizes and rounds. (e) ``khl_sensitivity`` at its defaults
-   (n=1,000, C=64, spread 128, 1000 permille) but 10 reps of its 20 (the
+   (n=1,000, C=64, spread 128, 1000 permille) but 1 rep of its 20 (the
    cut that keeps the run inside its limit), started first and run beside
    the rest; then its cell (6, 4, 2) in this process, captured, to the
    same table line. (f) ``fleet_khl_autotune`` at its defaults and
@@ -256,6 +256,29 @@ exits non-zero:
    slots, K=10, H=9, L=4, C=64, spread 2): its reads, uploads and
    collectives per round equal the audit shape's ``step``. The captured
    rounds go through phase 10's checks as route ``program_facts``.
+26. cost_dataflow: the static gate's cost-model and dataflow families on
+   the card. (a) The cost ladder (``tools/analysis/cost_model.py``: N
+   64-512, K 2-8, fleets of 2-8 tenants of 64 slots) on the card: every
+   device-independent fact (lane bytes, host reads, uploads, bytes read
+   back, delivery calls, collectives) equals ``cost.lock.json`` at every
+   point, and so do the quiescent round's reads and payloads; each point
+   of the N and tenant axes once more under torch.profiler, its CUDA
+   kernels a call fitted to a class (O(1) expected). (b) ``step`` at
+   N=102,400 with the audit's K, C and knobs: its lane bytes as the
+   locked fit predicts, within the fact's tolerance. (c) The dataflow
+   trace (``tools/analysis/dataflow.py``) of every entry point on the
+   card, the kernel its opaque node: the relation, the observer and
+   tenant proofs and the carry-only lanes equal ``dataflow.lock.json``.
+   (d) ``step``'s relation at phase 4's churn (102,500 slots, K=10, C=64)
+   equals its relation at the audit shape.
+27. lane_tiles: the delivery kernel's lane tile (``pallas_lanes``). (a)
+   ``examples/delivery_autotune`` as a process (widths 128-1,024 at
+   [64, 100,000] and [8, 1,000,000], spread 2): its card line, each
+   width's ms and the best width. (b) Every width on the same inputs and
+   on every round of a captured churn, bit for bit against the plain
+   version (and so against width 128). (c) Phase 4's churn at the churn
+   shape's best width, at 1,024 and at 128: equal rounds, cuts and lanes. The
+   captured rounds of 26 and 27 go through phase 10's checks.
 
 A kernel's bound (``delivery_bound``) is the larger of its bytes (each
 input once, the output once) over the HBM rate and the delay draws its
@@ -268,7 +291,7 @@ with its twin), 17 (the timed fleet), 18 (the three churns) and 19 (each
 scraped path and the profiled churn) and 21 (a: the grid's ``check_all``
 replays) and 22 (f) and 23 (each of b-e, each side) and 24 (each
 in-process twin; each process of phase 24 starts from 0) and 25 (b and
-d) and read just after;
+d) and 26 (the phase) and 27 (c, each churn) and read just after;
 phase 20 and phase 21's (b) and (c) zero it and must leave it at 0. Then the kernels
 line (with ptxas's facts), the card's
 name and power limit from ``nvidia-smi``, and as the last line
@@ -602,9 +625,11 @@ def capturing(captured):
         yield
         return
 
-    def capture(blocked, age, epoch, *params):
+    def capture(blocked, age, epoch, *params, **tile):
+        # The lane tile (``lanes=``) is not kept: every width gives the same
+        # words, and the captured rounds replay at the default.
         captured.append((blocked.clone(), age.clone(), epoch.clone(), *params))
-        return real(blocked, age, epoch, *params)
+        return real(blocked, age, epoch, *params, **tile)
 
     virtual_cluster.delivery_new_bits = capture
     try:
@@ -689,28 +714,79 @@ def phase_main_path(dev, captured=None):
     return total_launches
 
 
-def profile_run(dev, run):
+#: Seconds of ``torch.cuda._sleep`` kernels launched inside a profiler
+#: window before the profiled call, and again after it. On the H100 a
+#: session loses the kernels of a span near its start, and the span grows
+#: with the process: a whole 33-kernel ``sync`` call, or ~55 kernels a
+#: session ~700 s into ``chip_smoke.py``, whatever the idle wait before
+#: the call. Marker kernels fill that span instead of the call's.
+PROFILE_LEAD_S = 0.02
+#: Clock cycles of one marker kernel (~30 us), so a span holds hundreds of
+#: records, not tens of thousands.
+PROFILE_MARKER_CYCLES = 50_000
+#: The host range around each span of marker kernels.
+PROFILE_SPAN = "chip_smoke.profile_markers"
+
+
+def is_profile_marker(name):
+    """The device rows ``profile_run`` adds around the profiled call:
+    ``torch.cuda._sleep``'s and ``exponential_``'s kernels (the port uses
+    neither) and the device side of the host ranges around them."""
+    return name == PROFILE_SPAN or "spin_kernel" in name or is_profile_fence(name)
+
+
+def is_profile_fence(name):
+    return "exponential" in name or "distribution" in name
+
+
+def profile_run(dev, run, lead_s=PROFILE_LEAD_S):
     """``run()`` once under torch.profiler: the device busy share of the
     profiled wall clock, the delivery kernel's share of device time and the
-    kernels that take the most device time. Returns (run's result,
-    profile)."""
+    kernels that take the most device time. ``lead_s`` seconds of marker
+    kernels go before the call and after it, and the call is fenced by one
+    ``exponential_`` kernel before it and one after, each waited for;
+    ``"recorded"`` says whether the session holds both fences, and so
+    every kernel of the call. Returns (run's result, profile)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    scratch = torch.empty(1, device=dev)
+
+    def markers():
+        end = time.perf_counter() + lead_s
+        while time.perf_counter() < end:
+            for _ in range(32):
+                torch.cuda._sleep(PROFILE_MARKER_CYCLES)
+            torch.cuda.synchronize(dev)
+
+    def fence():
+        scratch.exponential_()
+        torch.cuda.synchronize(dev)
 
     torch.cuda.synchronize(dev)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function(PROFILE_SPAN):
+            markers()
+        fence()
         start = time.perf_counter()
         result = run()
         torch.cuda.synchronize(dev)
         wall_ms = (time.perf_counter() - start) * 1e3
+        fence()
+        with record_function(PROFILE_SPAN):
+            markers()
+    device_names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    fences = sum(1 for name in device_names if is_profile_fence(name))
+    leads = sum(1 for name in device_names if "spin_kernel" in name)
     # Kernel rows only: CPU-side op rows carry their kernels' device time too.
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0 and not is_profile_marker(e.key)]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     delivery_ms = sum(e.self_device_time_total for e in kernels
                       if "delivery_new_bits_kernel" in e.key) / 1e3
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:10]
-    host_ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU]
+    host_ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU
+                and e.key not in ("aten::exponential_", PROFILE_SPAN)]
     return result, {
         "wall_ms": wall_ms, "device_ms": device_ms,
         "host_op_self_ms": sum(e.self_cpu_time_total for e in host_ops) / 1e3,
@@ -720,6 +796,8 @@ def profile_run(dev, run):
         "delivery_share": delivery_ms / device_ms if device_ms else None,
         "device_kernels": sum(e.count for e in kernels),
         "top": [[e.key[:80], e.count, e.self_device_time_total / 1e3] for e in top],
+        "marker_kernels_recorded": leads,
+        "recorded": fences == 2,
     }
 
 
@@ -3662,18 +3740,18 @@ BLOCK_JAX = (
     "runpy.run_module(name, run_name='__main__', alter_sys=True)\n"
 )
 #: Phase 24's sizes: the entry points' own defaults unless named here. The
-#: K/H/L table runs 10 of its 20 reps: the cut that keeps the whole run well
-#: inside its time limit on a slow host (20 reps take ~380 s on one H100
-#: 80GB HBM3 at 700 W).
+#: K/H/L table runs 1 of its 20 reps: the cut that keeps the whole run well
+#: inside its time limit on a slow host (on one H100 80GB HBM3 at 700 W, 20
+#: reps take ~380 s, 10 reps ~196 s, 3 reps 157-187 s).
 ENTRY = dict(agents=5, chaos_seed=0, fleet=CHAOS["tenants"], fleet_seed=CHAOS["timed_seed"],
-             demo=[], boot=(2_000, 100_000), khl=["--reps", "10"], khl_cell=(6, 4, 2),
+             demo=[], boot=(2_000, 100_000), khl=["--reps", "1"], khl_cell=(6, 4, 2),
              autotune=[], microbench=[], microbench_shapes=[[64, 100_000], [8, 1_000_000]],
              ceiling="50,100,200", udp_rates="0,1,5,10,20",
              audit=dict(n=HEADLINE["n"] + HEADLINE["n_join"], cohorts=HEADLINE["cohorts"],
                         seed=4))
 #: Seconds each step may take before it fails the run.
 ENTRY_TIMEOUT = dict(agents=120, chaos=240, fleet=300, demo=300, boot=300, khl=900,
-                     autotune=300, microbench=300, ceiling=300, udp=300, audit=300, viewer=120)
+                     autotune=300, lanes=300, microbench=300, ceiling=300, udp=300, audit=300, viewer=120)
 
 
 def entry_env(report=None):
@@ -4154,7 +4232,8 @@ def phase_program_facts(dev, captured):
             got = delivery_new_bits.launches
             check(got == facts[name]["delivery_calls"],
                   f"{name}: {got} delivery launches, {facts[name]['delivery_calls']} calls")
-            per_call[name] = {"cuda_kernels": prof["device_kernels"], "delivery_launches": got,
+            per_call[name] = {"cuda_kernels": prof["device_kernels"],
+                              "profile_recorded": prof["recorded"], "delivery_launches": got,
                               "device_ms": prof["device_ms"], "wall_ms": prof["wall_ms"],
                               "cpu_aten_ops": locked["entrypoints"][name]["aten_ops"]}
 
@@ -4191,6 +4270,206 @@ def phase_program_facts(dev, captured):
     return launches + full_launches
 
 
+#: Phase 26's shapes: the step off the ladder whose lane bytes the locked
+#: fit predicts (the audit's K, C and knobs).
+COST_OFF_LADDER_N = 102_400
+#: Phase 26: sessions a ladder point is profiled in before a lost record
+#: fails the phase (the markers' span grows 3x each time, 20 ms to 1.62 s).
+PROFILE_ATTEMPTS = 5
+#: Phase 27: the lane tiles delivery_autotune sweeps, and its shapes.
+LANE_WIDTHS = (128, 256, 512, 1024)
+LANE_SHAPES = ((64, 100_000), (8, 1_000_000))
+
+
+def phase_cost_dataflow(dev, captured):
+    """Phase 26. ``captured`` receives the delivery rounds of (b) and (d)."""
+    from rapid_tpu_torch.ops.kernels import delivery_new_bits
+    from rapid_tpu_torch.tools.analysis import cost_model as cm
+    from rapid_tpu_torch.tools.analysis import dataflow as df
+    from rapid_tpu_torch.tools.analysis import device_program as dp
+
+    card = smi("name,power.limit")
+    torch.cuda.synchronize(dev)
+    delivery_new_bits.launches = 0
+    seconds = {}
+
+    # (a) The ladder's device-independent facts on the card equal the CPU
+    # lock's at every point (and the quiescent block's reads and payloads).
+    locked, problems = cm.read_lock()
+    check(locked is not None, f"cost lock unreadable: {problems}")
+    # (Not captured: the capture's copies would be counted operators.)
+    start = time.perf_counter()
+    drift = cm.check_lock_against(locked, dev.type)
+    seconds["ladder"] = time.perf_counter() - start
+    check(not drift, "cost ladder on the card differs from the lock:\n"
+          + "\n".join(str(f) for f in drift))
+    table = cm.collect_ladder(dev.type)
+    # CUDA kernels a call at each point of the N (and tenant) axis, fitted.
+    # A session that lacks a fence kernel lost records: the point is
+    # profiled again on a fresh call, with three times the markers each
+    # time, and the phase fails if PROFILE_ATTEMPTS sessions all lost
+    # records. A lost record only lowers a count, so a point below its
+    # entry's highest is also profiled again, three times at most, and
+    # keeps its highest count.
+    start = time.perf_counter()
+    kernels, fits, retried, lost = {}, {}, 0, 0
+
+    def profiled(name, pt):
+        nonlocal lost
+        for attempt in range(PROFILE_ATTEMPTS):
+            prof = profile_run(dev, cm.point_spec(name, pt, dev)["call"],
+                               lead_s=PROFILE_LEAD_S * 3 ** attempt)[1]
+            if prof["recorded"]:
+                return prof["device_kernels"]
+            lost += 1
+        raise RuntimeError(f"{name} at {cm.point_key(pt)}: the profiler lost records in "
+                           f"{PROFILE_ATTEMPTS} sessions")
+
+    for name in cm.COST_REGISTRY:
+        points = [pt for pt in cm.ladder_points(name) if pt["k"] == cm.BASE_K]
+        per = {cm.point_key(pt): profiled(name, pt) for pt in points}
+        for pt in points:
+            for _ in range(3):
+                if per[cm.point_key(pt)] >= max(per.values()):
+                    break
+                retried += 1
+                per[cm.point_key(pt)] = max(per[cm.point_key(pt)], profiled(name, pt))
+        fit = cm.fit_scaling([((pt["n_eff"], pt["k"]), per[cm.point_key(pt)]) for pt in points],
+                             cm.FACT_TOLERANCES["aten_ops"])
+        kernels[name], fits[name] = per, fit.get("class", fit.get("error"))
+        check(fit.get("class") == "O(1)", f"{name}: CUDA kernels a call {per} fit {fit}")
+    seconds["kernels"] = time.perf_counter() - start
+
+    # (b) One step off the ladder: the locked fit predicts its lane bytes.
+    fit = locked["entrypoints"]["step"]["facts"]["lane_bytes"]
+    predicted = cm.predict(fit["class"], fit["coeffs"], COST_OFF_LADDER_N, cm.BASE_K, True)
+    with capturing(captured):
+        off = dp.measure(dp.registry(dev, n=COST_OFF_LADDER_N)["step"]())
+    lane_bytes = sum(off["memory"].values())
+    check(abs(lane_bytes - predicted) <= cm.FACT_TOLERANCES["lane_bytes"] * lane_bytes,
+          f"step at N={COST_OFF_LADDER_N}: {lane_bytes} lane bytes, the lock predicts {predicted}")
+
+    # (c) The dataflow relation traced on the card (the kernel its opaque
+    # node) equals the CPU lock's; the observer and tenant proofs hold.
+    dlock, problems = df.read_lock()
+    check(dlock is not None, f"dataflow lock unreadable: {problems}")
+    start = time.perf_counter()
+    drift = df.check_lock_against(dlock, dev.type)
+    seconds["dataflow"] = time.perf_counter() - start
+    check(not drift, "dataflow on the card differs from the lock:\n"
+          + "\n".join(str(f) for f in drift))
+    payload, _ = df.collect_dataflow(dev.type)
+
+    # (d) step at the churn's full shape gives the audit shape's relation.
+    n, n_join, n_crash = HEADLINE["n"], HEADLINE["n_join"], HEADLINE["n_crash"]
+    vc, _ = churn_cluster(n, n_join, n_crash, HEADLINE["cohorts"], 26, dev)
+    from rapid_tpu_torch.models.virtual_cluster import engine_step
+
+    spec = {"call": lambda: engine_step(vc.cfg, vc.state, vc.faults),
+            "inputs": {"state": vc.state, "faults": vc.faults}}
+    with capturing(captured):
+        full = df.trace_call(spec)
+        audit = df.trace_call(dp.registry(dev)["step"]())
+    for kind in ("data", "control"):
+        check(full[kind] == audit[kind], f"step's {kind} relation at the churn's shape differs "
+              f"from the audit shape's")
+    torch.cuda.synchronize(dev)
+    launches = delivery_new_bits.launches
+    check(launches > 0, "phase 26 never launched the delivery kernel")
+    emit({"phase": "cost_dataflow", "card": card, "seconds": seconds,
+          "kernels_per_call": kernels, "kernels_class": fits, "kernels_reprofiled": retried,
+          "profiles_lost": lost,
+          "off_ladder": {"n": COST_OFF_LADDER_N, "lane_bytes": lane_bytes,
+                         "predicted": predicted, "aten_ops": off["aten_ops"],
+                         "transfers": off["transfers"]},
+          "observer_silent": all(e["observer_silent"] for e in payload["entrypoints"].values()),
+          "tenant_isolation": payload["tenant_isolation"],
+          "full_shape_step": {"n_slots": n + n_join, "k": HEADLINE["k"], "cohorts": HEADLINE["cohorts"],
+                              "outputs": len(full["data"]), "aten_ops": full["aten_ops"]},
+          "delivery_launches": launches})
+    return launches
+
+
+def phase_lane_tiles(dev, captured):
+    """Phase 27. ``captured`` receives the delivery rounds of the churns."""
+    import shutil
+
+    from rapid_tpu_torch.examples.kernel_microbench import delivery_inputs as engine_inputs
+    from rapid_tpu_torch.ops.kernels import delivery_new_bits, delivery_new_bits_ref
+
+    card = smi("name,power.limit")
+    workdir = tempfile.mkdtemp(prefix="lane_tiles_")
+    # (a) delivery_autotune as a user runs it.
+    widths = ",".join(map(str, LANE_WIDTHS))
+    entry = Entry(workdir, "delivery_autotune", "examples.delivery_autotune",
+                  ["--widths", widths], ENTRY_TIMEOUT["lanes"])
+    try:
+        out, process_launches, process_s = entry.result()
+    finally:
+        entry.stop()
+        shutil.rmtree(workdir, ignore_errors=True)
+    lines = out.strip().splitlines()
+    check(lines[0] == card, f"autotune printed {lines[0]!r}, nvidia-smi says {card!r}")
+    rows = [json.loads(line) for line in lines[1:]]
+    check([row["shape"] for row in rows] == [list(s) for s in LANE_SHAPES],
+          f"autotune shapes {[row['shape'] for row in rows]}")
+    check(process_launches and process_launches > 0, "autotune launched no kernel")
+    # (b) Every width on the autotune's inputs (made here as it makes them)
+    # and on a captured churn round, against width 128 and the plain version.
+    rng = np.random.default_rng(0)
+    lane_tiles, bounds = {}, {}
+    for (c, n), row in zip(LANE_SHAPES, rows):
+        args = engine_inputs(n, c, rng, dev)
+        args = args[:5] + (2, 1000)
+        want = delivery_new_bits_ref(*args)
+        for lanes in LANE_WIDTHS:
+            check(torch.equal(delivery_new_bits(*args, lanes=lanes), want),
+                  f"lane tile {lanes} differs from the plain version at {[c, n]}")
+        key = f"{c}x{n}"
+        lane_tiles[key] = {w: row["per_width_ms"][str(w)] for w in LANE_WIDTHS}
+        bounds[key] = delivery_bound(*args)[0]
+        del args, want
+    churn_rounds = []
+    n, n_join, n_crash = HEADLINE["n"], HEADLINE["n_join"], HEADLINE["n_crash"]
+    vc, _ = churn_cluster(n, n_join, n_crash, HEADLINE["cohorts"], 27, dev)
+    with capturing(churn_rounds):
+        resolve(vc, n)
+    for i, args in enumerate(churn_rounds):
+        want = delivery_new_bits_ref(*args)
+        for lanes in LANE_WIDTHS:
+            check(torch.equal(delivery_new_bits(*args, lanes=lanes), want),
+                  f"lane tile {lanes} differs from the plain version on churn round {i}")
+    captured.extend(churn_rounds)
+    del churn_rounds
+    # (c) The churn at the churn shape's best width, and at the widest,
+    # against 128: the same rounds, cuts and lanes.
+    best = rows[0]["best_width"]
+    results, states, launches = {}, {}, {}
+    for lanes in sorted({128, best, max(LANE_WIDTHS)}):
+        vc, _ = churn_cluster(n, n_join, n_crash, HEADLINE["cohorts"], 28, dev, pallas_lanes=lanes)
+        torch.cuda.synchronize(dev)
+        delivery_new_bits.launches = 0
+        with capturing(captured if lanes == best else None):
+            results[lanes] = resolve(vc, n)
+        torch.cuda.synchronize(dev)
+        launches[lanes] = delivery_new_bits.launches
+        check(results[lanes][2], f"churn at lane tile {lanes} unresolved: {results[lanes]}")
+        check(launches[lanes] > 0, f"churn at lane tile {lanes} launched no kernel")
+        states[lanes] = vc.state
+    for lanes in results:
+        check(results[lanes] == results[128], f"churn at lane tile {lanes}: {results[lanes]}, "
+              f"at 128: {results[128]}")
+        for field in states[128]._fields:
+            check(torch.equal(getattr(states[lanes], field), getattr(states[128], field)),
+                  f"churn at lane tile {lanes}: lane {field} differs from 128")
+    emit({"phase": "lane_tiles", "card": card, "autotune": rows,
+          "autotune_seconds": process_s, "autotune_launches": process_launches,
+          "lane_tiles": lane_tiles, "bound_ms": bounds, "best_width": best,
+          "churn": {str(lanes): {"rounds": r[0], "cuts": r[1], "launches": launches[lanes]}
+                    for lanes, r in results.items()}})
+    return launches[best], lane_tiles
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--parent", metavar="DIR",
@@ -4219,6 +4498,8 @@ def main(argv=None) -> int:
         out = fn(dev, *args)
         seconds[name] = time.perf_counter() - begin
         launch[name] = launch_us(dev)
+        print(f"chip_smoke: {name} {seconds[name]:.1f} s, {time.perf_counter() - start:.1f} s in all",
+              file=sys.stderr, flush=True)
         return out
 
     paths = {"churn": [], "fleet_wave": []}
@@ -4279,6 +4560,13 @@ def main(argv=None) -> int:
     captured.update(timed("program_facts_kernel_paths", phase_kernel_paths,
                           {"program_facts": program_rounds}))
     del program_rounds
+    late_rounds = {"cost_dataflow": [], "lane_tiles": []}
+    launches["cost_dataflow"] = timed("cost_dataflow", phase_cost_dataflow,
+                                      late_rounds["cost_dataflow"])
+    launches["lane_tiles"], lane_tiles = timed("lane_tiles", phase_lane_tiles,
+                                               late_rounds["lane_tiles"])
+    captured.update(timed("lane_kernel_paths", phase_kernel_paths, late_rounds))
+    del late_rounds
     emit({"phase": "timing", "seconds": seconds, "total_seconds": time.perf_counter() - start,
           "launch_us_after": launch})
 
@@ -4302,6 +4590,7 @@ def main(argv=None) -> int:
         "bound_by": main_mode["bound_by"],
         "library_ms": None,
         "ptxas": ptxas,
+        "lane_tiles": lane_tiles,
         "cold_ms": main_mode["cold_ms"],
         "fleet_shape": {key: fleet_mode[key] for key in keys},
         "mode0": {shape: {key: m[key] for key in keys} for shape, m in (

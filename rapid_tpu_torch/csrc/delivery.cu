@@ -63,6 +63,16 @@
 //    Now the grid is 1-D over (tenant, word, slot), so only the last block
 //    of the launch is ragged.
 //
+// 6. The Pallas kernel's lane tile (``EngineConfig.pallas_lanes``: slots a
+//    grid step covers, a positive multiple of 128) is a launch argument.
+//    A block keeps 128 threads and covers `lanes` consecutive thread
+//    indices, lanes / 128 per thread in a loop, so the grid has
+//    ceil(threads / lanes) blocks. Shared memory and registers stay those
+//    of one 128-thread block, and at lanes = 128 this is the kernel as it
+//    was. Each thread index is computed as it would be at any width, and
+//    the draws are salted by global slot and cohort, so every width writes
+//    the same words.
+//
 // No tensor-core or TMA path applies: there is no product to feed wgmma,
 // and every tile is one row of 4-byte words read once, which coalesced
 // loads already stream at the memory's rate without staging in shared
@@ -111,23 +121,20 @@ __device__ __forceinline__ bool draw_delivers(uint32_t rnd, int32_t age, uint64_
   return !gate || age >= 1 + static_cast<int32_t>(fastmod(rnd, m, d));
 }
 
-// One thread per (tenant, cohort word, slot). K = 0 is the generic
-// instance: rings up to 32, those at or past k zeroed.
-// MODE 0: spread == 0, every delay is 0 (nothing pending).
+// One (tenant, cohort word, slot) thread index of the launch, `gidx`.
 template <int K, int MODE>
-__global__ void __launch_bounds__(kThreads)
-    delivery_new_bits_kernel(const uint32_t* __restrict__ blocked, const int32_t* __restrict__ age,
-                             const uint32_t* __restrict__ epoch, uint32_t* __restrict__ out,
-                             uint32_t threads, uint32_t words, int n, int k_rt, int c,
-                             int32_t maxdelay, uint32_t d, uint64_t m, uint32_t permille,
-                             uint32_t lanes_per_slot, uint32_t slot_offset,
-                             uint32_t cohort_offset) {
+__device__ __forceinline__ void deliver_thread(
+    const uint32_t* __restrict__ blocked, const int32_t* __restrict__ age,
+    const uint32_t* __restrict__ epoch, uint32_t* __restrict__ out, uint32_t threads,
+    uint32_t words, int n, int k_rt, int c, int32_t maxdelay, uint32_t d, uint64_t m,
+    uint32_t permille, uint32_t lanes_per_slot, uint32_t slot_offset, uint32_t cohort_offset,
+    uint32_t gidx) {
   constexpr int KR = K ? K : 32;
   // Lanes past the last thread stay for the warp's collectives; they load
   // the last thread's inputs and store nothing. (The wrapper keeps
   // t * words * n below 2^31.)
-  const bool valid = blockIdx.x * kThreads + threadIdx.x < threads;
-  const uint32_t idx = min(blockIdx.x * kThreads + threadIdx.x, threads - 1);
+  const bool valid = gidx < threads;
+  const uint32_t idx = min(gidx, threads - 1);
   const uint32_t slot = idx % static_cast<uint32_t>(n);
   const uint32_t row = idx / static_cast<uint32_t>(n);
   const uint32_t word = row % words;
@@ -223,18 +230,42 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// A block of 128 threads per `lanes` (tenant, cohort word, slot) thread
+// indices. K = 0 is the generic instance: rings up to 32, those at or past
+// k zeroed. MODE 0: spread == 0, every delay is 0 (nothing pending).
+template <int K, int MODE>
+__global__ void __launch_bounds__(kThreads)
+    delivery_new_bits_kernel(const uint32_t* __restrict__ blocked, const int32_t* __restrict__ age,
+                             const uint32_t* __restrict__ epoch, uint32_t* __restrict__ out,
+                             uint32_t threads, uint32_t words, int n, int k_rt, int c,
+                             int32_t maxdelay, uint32_t d, uint64_t m, uint32_t permille,
+                             uint32_t lanes_per_slot, uint32_t slot_offset,
+                             uint32_t cohort_offset, uint32_t lanes) {
+  // The block's tile: `lanes` thread indices from blockIdx.x * lanes, 128
+  // at a time (the loop's bounds are the block's, so warps stay whole).
+  const uint32_t tile0 = blockIdx.x * lanes;
+  for (uint32_t step = 0; step < lanes && tile0 + step < threads; step += kThreads) {
+    deliver_thread<K, MODE>(blocked, age, epoch, out, threads, words, n, k_rt, c, maxdelay, d, m,
+                            permille, lanes_per_slot, slot_offset, cohort_offset,
+                            tile0 + step + threadIdx.x);
+    // The next index's draws reuse the warp's staging tile.
+    __syncwarp();
+  }
+}
+
 template <int K, int MODE>
 void launch(const uint32_t* b, const int32_t* a, const uint32_t* e, uint32_t* o, int t, int n,
             int k, int c, int spread, int permille, uint32_t d, unsigned long long m,
-            int slot_offset, int cohort_offset, cudaStream_t s) {
+            int slot_offset, int cohort_offset, int lanes, cudaStream_t s) {
   const uint32_t words = (static_cast<uint32_t>(c) + 31u) / 32u;
   const uint32_t threads = static_cast<uint32_t>(t) * words * static_cast<uint32_t>(n);
-  const dim3 grid((threads + kThreads - 1) / kThreads);
+  const uint32_t tile = static_cast<uint32_t>(lanes);
+  const dim3 grid((threads + tile - 1) / tile);
   uint32_t lanes_per_slot = 1;  // the power of two that covers one word's cohorts
   while (lanes_per_slot < static_cast<uint32_t>(c < 32 ? c : 32)) lanes_per_slot <<= 1;
   delivery_new_bits_kernel<K, MODE><<<grid, kThreads, 0, s>>>(
       b, a, e, o, threads, words, n, k, c, spread, d, m, static_cast<uint32_t>(permille),
-      lanes_per_slot, static_cast<uint32_t>(slot_offset), static_cast<uint32_t>(cohort_offset));
+      lanes_per_slot, static_cast<uint32_t>(slot_offset), static_cast<uint32_t>(cohort_offset), tile);
 }
 
 }  // namespace
@@ -245,11 +276,15 @@ void launch(const uint32_t* b, const int32_t* a, const uint32_t* e, uint32_t* o,
 // divisor d (spread + 1 when permille >= 1000, else spread; unused when
 // spread == 0). slot_offset / cohort_offset: the global slot of local column
 // 0 and the global cohort of local row 0 (0 and 0 for a whole cluster).
-// Launches on `stream` and returns cudaGetLastError().
+// lanes: the thread indices a block covers (the Pallas lane tile), a
+// positive multiple of 128; any other value launches nothing and returns
+// cudaErrorInvalidValue. Launches on `stream` and returns
+// cudaGetLastError().
 extern "C" int rapid_delivery_new_bits(const void* blocked, const void* age, const void* epoch,
                                        void* out, int t, int n, int k, int c, int spread,
                                        int permille, int slot_offset, int cohort_offset,
-                                       unsigned long long m, void* stream) {
+                                       int lanes, unsigned long long m, void* stream) {
+  if (lanes <= 0 || lanes % kThreads != 0) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   auto b = static_cast<const uint32_t*>(blocked);
   auto a = static_cast<const int32_t*>(age);
@@ -258,11 +293,11 @@ extern "C" int rapid_delivery_new_bits(const void* blocked, const void* age, con
   const uint32_t sp = static_cast<uint32_t>(spread);
   const int so = slot_offset, co = cohort_offset;
   if (spread == 0) {
-    (k == 10 ? launch<10, 0> : launch<0, 0>)(b, a, e, o, t, n, k, c, spread, permille, 1u, m, so, co, s);
+    (k == 10 ? launch<10, 0> : launch<0, 0>)(b, a, e, o, t, n, k, c, spread, permille, 1u, m, so, co, lanes, s);
   } else if (permille >= 1000) {
-    (k == 10 ? launch<10, 1> : launch<0, 1>)(b, a, e, o, t, n, k, c, spread, permille, sp + 1u, m, so, co, s);
+    (k == 10 ? launch<10, 1> : launch<0, 1>)(b, a, e, o, t, n, k, c, spread, permille, sp + 1u, m, so, co, lanes, s);
   } else {
-    (k == 10 ? launch<10, 2> : launch<0, 2>)(b, a, e, o, t, n, k, c, spread, permille, sp, m, so, co, s);
+    (k == 10 ? launch<10, 2> : launch<0, 2>)(b, a, e, o, t, n, k, c, spread, permille, sp, m, so, co, lanes, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

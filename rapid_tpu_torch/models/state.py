@@ -60,7 +60,9 @@ class EngineConfig(NamedTuple):
     # Probability (permille) that a delivery draws a nonzero delay; 1000 is
     # the legacy uniform [0, delivery_spread] draw.
     delivery_prob_permille: int = 1000
-    # Tile width of the TPU kernel; kept for positional parity, unused here.
+    # Lane tile of the delivery kernel: the slots one block of
+    # csrc/delivery.cu covers (the Pallas kernel's lanes), a positive
+    # multiple of 128; every width gives the same words.
     pallas_lanes: int = 128
     # 0 = the wide int32/uint32 layout; 1 = every lane of NARROWABLE_LANES
     # at the narrowest legal dtype (:func:`compaction_policy`), bit for bit

@@ -211,13 +211,15 @@ def _deliver_alerts(cfg: EngineConfig, state: EngineState, fire_round, blocked_r
     card, its plain version on the CPU. Ages are int32 whatever the fire
     round's dtype (an unfired edge's sentinel age stays negative), and the
     kernel's uint32 words are narrowed on store. Sharded, the launch covers
-    this rank's shard, its draws salted by global slot and cohort."""
+    this rank's shard, its draws salted by global slot and cohort. A block
+    of the launch covers ``cfg.pallas_lanes`` slots (the Pallas lane
+    tile); every width gives the same words."""
     _, c_l, slot_offset, cohort_offset = _local(cfg, ctx)
     offsets = () if ctx is None else (slot_offset, cohort_offset)
     age_kn = (state.round_idx[:, None, None] - fire_round.transpose(1, 2).to(torch.int32)).contiguous()
     words = delivery_new_bits(
         blocked_rows, age_kn, state.config_epoch, cfg.k, c_l,
-        cfg.delivery_spread, cfg.delivery_prob_permille, *offsets,
+        cfg.delivery_spread, cfg.delivery_prob_permille, *offsets, lanes=cfg.pallas_lanes,
     )
     return _narrow.keep_bits(words, state.report_bits.dtype)
 

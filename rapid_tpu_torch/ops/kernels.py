@@ -137,6 +137,17 @@ def delivery_new_bits_ref(blocked_rows, age_kn, epoch, k: int, c: int, spread: i
 #: Most tenants one kernel call takes (they ride ``gridDim.z``).
 MAX_TENANTS = 65535
 
+#: The lane tile's unit: the Pallas kernel's lane width, and the threads of
+#: one block of ``csrc/delivery.cu``.
+LANES = 128
+
+
+def check_lanes(lanes: int) -> None:
+    """The Pallas wrapper's rule for the lane tile (``EngineConfig.
+    pallas_lanes``), with its message: a positive multiple of 128."""
+    if lanes % LANES or lanes <= 0:
+        raise ValueError(f"lanes must be a positive multiple of {LANES}: {lanes}")
+
 
 def _check_delivery_args(blocked_rows, age_kn, epoch, k, c, spread, permille, slot_offset=0,
                          cohort_offset=0):
@@ -201,18 +212,22 @@ def delivery_divisor(spread: int, permille: int) -> int:
 @functools.cache
 def _delivery_fn():
     fn = _build.load("delivery").rapid_delivery_new_bits
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_uint64, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_uint64, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def delivery_new_bits(blocked_rows, age_kn, epoch, k: int, c: int, spread: int, permille: int,
-                      slot_offset: int = 0, cohort_offset: int = 0):
+                      slot_offset: int = 0, cohort_offset: int = 0, lanes: int = LANES):
     """Per-cohort delivered alert bitmasks, ``[c, n]`` for one cluster or
     ``[t, c, n]`` for a fleet (stored uint32): the CUDA kernel
     ``csrc/delivery.cu`` on CUDA tensors, one launch per call whatever
     ``t``; the plain version on CPU tensors. Arguments as
-    :func:`delivery_new_bits_ref`, the offsets included."""
+    :func:`delivery_new_bits_ref`, the offsets included. ``lanes`` is the
+    Pallas kernel's lane tile (``EngineConfig.pallas_lanes``), the thread
+    indices one block of the kernel covers, checked by the Pallas
+    wrapper's rule on every device; every width gives the same words."""
+    check_lanes(lanes)
     device = _check_delivery_args(
         blocked_rows, age_kn, epoch, k, c, spread, permille, slot_offset, cohort_offset
     )
@@ -230,7 +245,7 @@ def delivery_new_bits(blocked_rows, age_kn, epoch, k: int, c: int, spread: int, 
         stream = torch.cuda.current_stream(device).cuda_stream
         err = _delivery_fn()(
             blocked_rows.data_ptr(), age_kn.data_ptr(), epoch.data_ptr(), out.data_ptr(),
-            t, n, k, c, spread, permille, slot_offset, cohort_offset, m, stream,
+            t, n, k, c, spread, permille, slot_offset, cohort_offset, lanes, m, stream,
         )
     if err != 0:
         raise RuntimeError(f"delivery kernel launch failed: cudaError {err}")

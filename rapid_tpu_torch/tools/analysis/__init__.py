@@ -7,7 +7,8 @@ gate and this package plays the error-prone role — the checks that need
 RESOLUTION, not just syntax. It is built on the stdlib (``ast``,
 ``symtable``, ``inspect``), imports nothing of the JAX package (it keeps
 its own copies of what it needs, as the port's other tools do), and
-imports torch only in ``device_program``, lazily.
+imports torch only in the families that run the engine (``device_program``,
+``cost_model``, ``dataflow``), lazily.
 
 Check families (one module each; ``core`` owns the driver/CLI/Finding),
 over the roots ``rapid_tpu_torch``, ``tests/test_torch_*.py``,
@@ -42,10 +43,17 @@ over the roots ``rapid_tpu_torch``, ``tests/test_torch_*.py``,
                         tensors built with no device)
 15. ``device_program``— the program facts of the registered engine entry
                         points, frozen in ``program.lock.json``
+16. ``cost_model``    — the entry points' facts fitted to scaling classes
+                        across N/K/tenant ladders, with the quiescent
+                        round's cost, frozen in ``cost.lock.json``
+17. ``dataflow``      — lane provenance from a dispatch trace: observer
+                        silence, tenant isolation and the
+                        sparse-opportunity map, frozen in
+                        ``dataflow.lock.json``
 
-JAX's ``cost_model`` and ``dataflow`` families are not ported yet.
 ``staticcheck --families`` prints this catalog; ``--update-wire-lock`` /
-``--update-program-lock`` regenerate the lockfiles after an intentional
+``--update-program-lock`` / ``--update-cost-lock`` /
+``--update-dataflow-lock`` regenerate the lockfiles after an intentional
 change.
 
 Shared philosophy: conservative resolution, zero-false-positive findings,

@@ -116,6 +116,18 @@ ALL_CHECK_NAMES = frozenset({
     "program-quiescent-activity",
     "program-trace-cursor",
     "program-lock-drift",
+    # cost_model family (fitted scaling classes vs cost.lock.json)
+    "cost-unexplained",
+    "cost-scaling-regression",
+    "cost-superlinear",
+    "cost-quiescent",
+    "cost-lock-drift",
+    # dataflow family (lane provenance vs dataflow.lock.json)
+    "dataflow-observer-effect",
+    "dataflow-cross-tenant",
+    "dataflow-dense-op",
+    "dataflow-dead-lane",
+    "dataflow-lock-drift",
 })
 
 #: The check families, in documentation order — one (name, description)
@@ -158,6 +170,18 @@ FAMILIES = (
                        "collectives, lane bytes, lanes in place, the "
                        "telemetry and trace blocks) frozen in "
                        "program.lock.json"),
+    ("cost_model", "scaling-law cost model: the registered entry points' "
+                   "facts (lane bytes, bytes touched and allocated, aten "
+                   "ops, host reads/uploads, delivery calls, collectives) "
+                   "fitted across N/K/tenant geometry ladders to "
+                   "O(1)/O(log N)/O(N)/O(N*K)/O(N^2) classes and frozen in "
+                   "cost.lock.json with the quiescent round's cost"),
+    ("dataflow", "dataflow provenance: per-storage taint over a dispatch "
+                 "trace of every entry point (data and host-read control "
+                 "edges), proving observer silence and fleet tenant "
+                 "isolation, plus the sparse-opportunity map of mask-gated "
+                 "dense operators of a quiescent round priced against the "
+                 "cost lock, frozen in dataflow.lock.json"),
 )
 
 
@@ -233,9 +257,9 @@ def run(roots: Sequence[str] = DEFAULT_ROOTS) -> List[Finding]:
     # The per-file check imports live here (not module top level) so the
     # CLI shim can import this module before sys.path is fully arranged.
     from . import (
-        chaosvocab, clocks, concurrency, deadcode, determinism, device_program,
-        dispatch, ledger, names, sharding, signatures, sync_safety, taskflow,
-        telemetry, wire_schema,
+        chaosvocab, clocks, concurrency, cost_model, dataflow, deadcode, determinism,
+        device_program, dispatch, ledger, names, sharding, signatures, sync_safety,
+        taskflow, telemetry, wire_schema,
     )
 
     per_file_checks = [
@@ -302,6 +326,10 @@ def run(roots: Sequence[str] = DEFAULT_ROOTS) -> List[Finding]:
         findings.extend(sharding.check_partition_specs(trees))
         findings.extend(telemetry.check_lane_mirror(trees))
         findings.extend(device_program.check_program_lock(trees))
+        # The cost ladder's base point and the dataflow map's prices reuse
+        # the program facts just collected (same process, same cache).
+        findings.extend(cost_model.check_cost_lock(trees))
+        findings.extend(dataflow.check_dataflow_lock(trees))
     return findings
 
 
@@ -375,6 +403,19 @@ def main(argv: Optional[List[str]] = None) -> int:
                              "wide/compact or trace-off/on differential "
                              "disagrees, a fleet collective crosses tenants, "
                              "or the quiescent soak counts activity)")
+    parser.add_argument("--update-cost-lock", action="store_true",
+                        dest="update_cost_lock",
+                        help="rerun the cost ladder on the CPU and regenerate "
+                             "rapid_tpu_torch/tools/analysis/cost.lock.json "
+                             "(refuses while a fit is unexplained, a fact "
+                             "exceeds its ceiling, or a differential disagrees)")
+    parser.add_argument("--update-dataflow-lock", action="store_true",
+                        dest="update_dataflow_lock",
+                        help="retrace the entry points on the CPU and regenerate "
+                             "rapid_tpu_torch/tools/analysis/dataflow.lock.json "
+                             "(refuses while an observer or tenant proof fails, "
+                             "a lane is dead, or the map's totals disagree with "
+                             "the cost lock)")
     args = parser.parse_args(argv)
     if args.families:
         for name, description in FAMILIES:
@@ -388,6 +429,14 @@ def main(argv: Optional[List[str]] = None) -> int:
         from . import device_program
 
         return _update("a program-facts surface", device_program.update_program_lock)
+    if args.update_cost_lock:
+        from . import cost_model
+
+        return _update("a scaling surface", cost_model.update_cost_lock)
+    if args.update_dataflow_lock:
+        from . import dataflow
+
+        return _update("a provenance surface", dataflow.update_dataflow_lock)
     findings = run(args.roots or DEFAULT_ROOTS)
     if args.select:
         keep = _check_name_set(parser, args.select, "--select")

@@ -29,7 +29,11 @@ Facts per call (:func:`measure`):
 - ``memory`` — state, fault, telemetry and trace bytes
   (``pytree_nbytes``);
 - ``lanes_in_place`` — per lane tree, the lanes returned in their input's
-  storage and the lane count: donation's counterpart.
+  storage and the lane count: donation's counterpart;
+- ``cost`` — the bytes the call's aten operators touch (each operator's
+  input and output tensors) and allocate (outputs in no input's storage),
+  which the ``cost_model`` family fits across its geometry ladder; not
+  frozen here.
 
 Two blocks beside them, as in JAX's lock: ``telemetry`` (lane bytes, and
 the activity counted over a 16-round zero-churn soak, frozen at zero) and
@@ -126,19 +130,34 @@ def audit_config() -> Dict[str, Any]:
     }
 
 
-def audit_cluster(device, seed: int = 0, h: int = 3, l: int = 1, churn: bool = True, **planes):
+def audit_scenario(n: int = AUDIT_N) -> Tuple[int, Tuple[int, ...], Tuple[int, ...], int]:
+    """The audit churn at ``n`` slots: ``(members, crashes, joins,
+    target)``. ``n - 8`` members, the four crashes at the audit's slots
+    scaled by the membership (the audit's own at ``n = 256``) and the 8 free
+    slots joining, so every ``n`` of the cost ladder decides in the same
+    rounds."""
+    members = n - (AUDIT_N - AUDIT_MEMBERS)
+    crashes = tuple(slot * members // AUDIT_MEMBERS for slot in AUDIT_CRASHES)
+    joins = tuple(range(members, n))
+    return members, crashes, joins, members - len(crashes) + len(joins)
+
+
+def audit_cluster(device, seed: int = 0, h: int = 3, l: int = 1, churn: bool = True,
+                  n: int = AUDIT_N, k: int = AUDIT_K, **planes):
     """JAX's audit cluster (k=4, H/L 3/1, fd threshold 2, 8 cohorts round
-    robin, spread 2) on ``device``, churned unless ``churn=False``."""
+    robin, spread 2) on ``device``, churned unless ``churn=False``; ``n``
+    slots and ``k`` rings for the cost ladder (:func:`audit_scenario`)."""
     from rapid_tpu_torch.models.virtual_cluster import VirtualCluster
 
+    members, crashes, joins, _ = audit_scenario(n)
     vc = VirtualCluster.create(
-        AUDIT_MEMBERS, n_slots=AUDIT_N, k=AUDIT_K, h=h, l=l, fd_threshold=2,
+        members, n_slots=n, k=k, h=h, l=l, fd_threshold=2,
         cohorts=AUDIT_C, delivery_spread=2, seed=seed, device=device, **planes,
     )
     vc.assign_cohorts_roundrobin()
     if churn:
-        vc.crash(list(AUDIT_CRASHES))
-        vc.inject_join_wave(list(AUDIT_JOINS))
+        vc.crash(list(crashes))
+        vc.inject_join_wave(list(joins))
     return vc
 
 
@@ -171,11 +190,16 @@ def one_rank_group(device_type: str):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def registry(device) -> Dict[str, Callable[[], Dict[str, Any]]]:
+def registry(device, n: int = AUDIT_N, k: int = AUDIT_K, churn: bool = True,
+             rounds: Optional[int] = None) -> Dict[str, Callable[[], Dict[str, Any]]]:
     """name -> builder of one call: ``{"call": fn, "inputs": {tree: lanes},
     "outputs": fn(result) -> {tree: lanes}, "context": ctx or None,
     "tenants": t}``. Each builder makes its own audit cluster, so no call
-    sees another's state."""
+    sees another's state. ``n`` / ``k`` move the single-cluster entries
+    along the cost ladder; ``churn=False`` leaves every cluster quiescent;
+    ``rounds`` caps the round loops (96 to a decision, 192 to a membership,
+    64 a fleet wave, by default).
+    A fleet's spec carries its knobs (``knobs``) beside its inputs."""
     from rapid_tpu_torch import _host
     from rapid_tpu_torch.models.virtual_cluster import (
         engine_step, run_to_decision, run_until_membership, sync_checksum,
@@ -184,9 +208,12 @@ def registry(device) -> Dict[str, Callable[[], Dict[str, Any]]]:
     from rapid_tpu_torch.tenancy import TenantFleet
     from rapid_tpu_torch.tenancy.fleet import make_fleet_step, make_fleet_wave
 
+    target = audit_scenario(n)[3]
+    to_decision, to_membership, wave_rounds = (rounds or 96), (rounds or 192), (rounds or 64)
+
     def single(planes, call, outputs):
         def build():
-            vc = audit_cluster(device, **planes)
+            vc = audit_cluster(device, churn=churn, n=n, k=k, **planes)
             inputs = {"state": vc.state, "faults": vc.faults}
             if vc.telem is not None:
                 inputs["telemetry"] = vc.telem
@@ -206,7 +233,7 @@ def registry(device) -> Dict[str, Callable[[], Dict[str, Any]]]:
 
     def sharded(make, shape, telem, wave):
         def build():
-            vc = audit_cluster(device, telemetry=telem)
+            vc = audit_cluster(device, churn=churn, telemetry=telem)
             m = pm.make_mesh(shape=shape, device_type=device.type)
             prog = make(vc.cfg, m)
             inputs = {"state": pm.shard_state(vc.state, m), "faults": pm.shard_faults(vc.faults, m)}
@@ -215,7 +242,7 @@ def registry(device) -> Dict[str, Callable[[], Dict[str, Any]]]:
 
             def call():
                 if wave:
-                    return prog(inputs["state"], inputs["faults"], AUDIT_TARGET, 192, 0)
+                    return prog(inputs["state"], inputs["faults"], AUDIT_TARGET, to_membership, 0)
                 if telem:
                     return prog(inputs["state"], inputs["telemetry"], inputs["faults"])
                 return prog(inputs["state"], inputs["faults"])
@@ -231,23 +258,24 @@ def registry(device) -> Dict[str, Callable[[], Dict[str, Any]]]:
         def build():
             import torch
 
-            clusters = [audit_cluster(device, seed=i, h=(3, 4)[i % 2], l=(1, 2)[i % 2])
-                        for i in range(AUDIT_TENANTS)]
+            clusters = [audit_cluster(device, seed=i, h=(3, 4)[i % 2], l=(1, 2)[i % 2],
+                                      churn=churn) for i in range(AUDIT_TENANTS)]
             fl = TenantFleet.from_clusters(clusters)
             m = pm.make_mesh(shape=AUDIT_FLEET_MESH, device_type=device.type)
             prog = (make_fleet_wave if wave else make_fleet_step)(fl.cfg, m)
             inputs = {"state": pm.shard_fleet_state(fl.state, m),
                       "faults": pm.shard_fleet_faults(fl.faults, m)}
-            target = torch.full((AUDIT_TENANTS,), AUDIT_TARGET, dtype=torch.int32, device=device)
+            targets = torch.full((AUDIT_TENANTS,), AUDIT_TARGET, dtype=torch.int32, device=device)
             min_cuts = torch.zeros((AUDIT_TENANTS,), dtype=torch.int32, device=device)
 
             def call():
                 if wave:
-                    return prog(inputs["state"], inputs["faults"], fl.knobs, target, 64, min_cuts)
+                    return prog(inputs["state"], inputs["faults"], fl.knobs, targets, wave_rounds,
+                                min_cuts)
                 return prog(inputs["state"], inputs["faults"], fl.knobs)
 
             return {"call": call, "inputs": inputs, "outputs": lambda res: {"state": res[0]},
-                    "context": prog.context, "tenants": AUDIT_TENANTS}
+                    "context": prog.context, "tenants": AUDIT_TENANTS, "knobs": fl.knobs}
         return build
 
     def sync_call(cfg, t):
@@ -265,11 +293,11 @@ def registry(device) -> Dict[str, Callable[[], Dict[str, Any]]]:
             lambda cfg, t: engine_step(cfg, t["state"], t["faults"], t["telemetry"], t["trace"]),
             step_out),
         "run_to_decision": single(
-            {}, lambda cfg, t: run_to_decision(cfg, t["state"], t["faults"], 96),
+            {}, lambda cfg, t: run_to_decision(cfg, t["state"], t["faults"], to_decision),
             lambda res: {"state": res[0]}),
         "run_until_membership": single(
-            {}, lambda cfg, t: run_until_membership(cfg, t["state"], t["faults"], AUDIT_TARGET,
-                                                    192, 8, 0),
+            {}, lambda cfg, t: run_until_membership(cfg, t["state"], t["faults"], target,
+                                                    to_membership, 8, 0),
             lambda res: {"state": res[0]}),
         "sync": single({}, sync_call, lambda res: {}),
         "sharded_step": sharded(pm.make_sharded_step, None, False, False),
@@ -290,18 +318,28 @@ def counting():
     operators dispatched), ``counts["delivery_calls"]`` (the delivery
     wrapper, through the engine's seam ``models.virtual_cluster.
     delivery_new_bits``), ``counts["read"]`` / ``counts["upload"]`` and
-    ``counts["d2h_bytes"]`` (the bytes ``_host.read`` brought back)."""
+    ``counts["d2h_bytes"]`` (the bytes ``_host.read`` brought back), and
+    ``counts["bytes_touched"]`` / ``counts["alloc_bytes"]`` (each
+    operator's input and output tensor bytes; its outputs in no input's
+    storage)."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     from rapid_tpu_torch import _host
     from rapid_tpu_torch.models import virtual_cluster
 
-    counts = {"aten_ops": 0, "delivery_calls": 0, "read": 0, "upload": 0, "d2h_bytes": 0}
+    counts = {"aten_ops": 0, "delivery_calls": 0, "read": 0, "upload": 0, "d2h_bytes": 0,
+              "bytes_touched": 0, "alloc_bytes": 0}
 
     class Ops(TorchDispatchMode):
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             counts["aten_ops"] += 1
-            return func(*args, **(kwargs or {}))
+            out = func(*args, **(kwargs or {}))
+            ins = [plain_tensor(t) for t in tensor_leaves((args, kwargs))]
+            outs = [plain_tensor(t) for t in tensor_leaves(out)]
+            counts["bytes_touched"] += sum(map(tensor_bytes, ins)) + sum(map(tensor_bytes, outs))
+            held = {storage_key(t) for t in ins}
+            counts["alloc_bytes"] += sum(tensor_bytes(t) for t in outs if storage_key(t) not in held)
+            return out
 
     real_read = _host.read
     real_delivery = virtual_cluster.delivery_new_bits
@@ -332,6 +370,28 @@ def counting():
         counts["upload"] = _host.upload.count - uploads
 
 
+def tensor_leaves(tree) -> List[Any]:
+    """The tensors of an operator's arguments or results."""
+    import torch
+    from torch.utils._pytree import tree_leaves
+
+    return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+
+
+def plain_tensor(t):
+    """A DTensor's local tensor, any other tensor as it is."""
+    return getattr(t, "_local_tensor", t)
+
+
+def tensor_bytes(t) -> int:
+    return t.numel() * t.element_size()
+
+
+def storage_key(t) -> int:
+    """The tensor's storage, by its base address (views share it)."""
+    return t.untyped_storage().data_ptr()
+
+
 def measure(spec: Dict[str, Any]) -> Dict[str, Any]:
     """The facts of one call of a registry entry."""
     from rapid_tpu_torch.models.state import pytree_nbytes
@@ -355,6 +415,7 @@ def measure(spec: Dict[str, Any]) -> Dict[str, Any]:
             for name, tree in sorted(outputs.items())
         },
         "collectives": {},
+        "cost": {key: counts[key] for key in ("bytes_touched", "alloc_bytes")},
     }
     ctx = spec["context"]
     if ctx is not None:
@@ -437,7 +498,8 @@ def facts_to_lock(
     return {
         "audit_config": audit_config(),
         "aten_ops_release": torch_release(),
-        "entrypoints": {name: facts[name] for name in sorted(facts)},
+        "entrypoints": {name: {key: value for key, value in facts[name].items() if key != "cost"}
+                        for name in sorted(facts)},
         "telemetry": dict(telemetry),
         "trace": dict(trace),
     }

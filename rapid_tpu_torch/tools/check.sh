@@ -13,12 +13,17 @@ echo "== static checks (port AST lint + resolution tier + program-facts lock) ==
 #   python -m rapid_tpu_torch.tools.staticcheck --update-program-lock
 # It refuses while the wide<->compact or trace-off<->on differential
 # disagrees, a fleet collective crosses tenants, or the zero-churn soak
-# counts activity — those must be fixed, never frozen.
+# counts activity — those must be fixed, never frozen. The cost ladder and
+# the dataflow trace regenerate the same way, cost lock first:
+#   python -m rapid_tpu_torch.tools.staticcheck --update-cost-lock
+#   python -m rapid_tpu_torch.tools.staticcheck --update-dataflow-lock
 JAX_PLATFORMS=cpu python -m rapid_tpu_torch.tools.staticcheck
-JAX_PLATFORMS=cpu python -m pytest tests/test_torch_staticcheck.py tests/test_torch_lint.py -q -p no:randomly
+JAX_PLATFORMS=cpu python -m pytest tests/test_torch_staticcheck.py tests/test_torch_lint.py \
+  tests/test_torch_cost_model.py tests/test_torch_dataflow.py -q -p no:randomly
 
 echo "== the port's tests (CPU) =="
 JAX_PLATFORMS=cpu python -m pytest tests/test_torch_*.py -q \
-  --ignore=tests/test_torch_staticcheck.py --ignore=tests/test_torch_lint.py
+  --ignore=tests/test_torch_staticcheck.py --ignore=tests/test_torch_lint.py \
+  --ignore=tests/test_torch_cost_model.py --ignore=tests/test_torch_dataflow.py
 
 echo "ALL PORT CHECKS PASSED"

@@ -20,7 +20,8 @@ host library built there with a 2,048-endpoint cluster resumed from a saved
 ``Configuration`` on the card equal to the same on the CPU, and the
 sharded engine: the delivery kernel on column and cohort shards with
 offsets, and the sharded step, wave and fleet step on one-rank NCCL meshes
-equal to the unsharded engine on the card.
+equal to the unsharded engine on the card, and every lane tile of the
+kernel (``pallas_lanes`` 128 to 1,024) equal to width 128.
 Every test needs a CUDA card and ``nvcc``
 and skips without them. On a GPU machine, from the root of a checkout
 (``--noconftest`` because the suite's conftest configures JAX, which the
@@ -113,6 +114,26 @@ def test_batched_delivery_kernel_matches_plain_version(card, t, c, k, n, spread,
     assert delivery_new_bits.launches == before + 1  # one launch for every tenant
     assert got.shape == (t, c, n) and got.device == card
     np.testing.assert_array_equal(_u32.to_numpy(got), _u32.to_numpy(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,n", [(64, 100_000), (8, 1_000_000), (40, 777)])
+@pytest.mark.parametrize("spread,permille", [(0, 1000), (2, 1000), (3, 300)])
+def test_every_lane_tile_gives_the_plain_versions_words(card, c, n, spread, permille):
+    # delivery_autotune's shapes (and a ragged one): every width of the
+    # lane tile, bit for bit against width 128 and the plain version; a
+    # width the kernel does not take raises instead of launching.
+    blocked, age, epoch = delivery_inputs(c, 10, n, c + spread, card)
+    args = (blocked, age, epoch, 10, c, spread, permille)
+    want = delivery_new_bits_ref(*args)
+    first = delivery_new_bits(*args, lanes=128)
+    assert torch.equal(first, want)
+    for lanes in (256, 512, 1024):
+        before = delivery_new_bits.launches
+        assert torch.equal(delivery_new_bits(*args, lanes=lanes), first)
+        assert delivery_new_bits.launches == before + 1
+    with pytest.raises(ValueError, match="positive multiple of 128"):
+        delivery_new_bits(*args, lanes=192)
 
 
 @pytest.mark.cuda
@@ -668,11 +689,11 @@ def test_replay_delivery_calls_make_no_synchronizing_call(card):
 
     real, calls = virtual_cluster.delivery_new_bits, []
 
-    def checked(*args):
+    def checked(*args, **kwargs):
         torch.cuda.synchronize(card)
         torch.cuda.set_sync_debug_mode("error")
         try:
-            out = real(*args)
+            out = real(*args, **kwargs)
         finally:
             torch.cuda.set_sync_debug_mode("default")
         calls.append(out.shape)

@@ -9,6 +9,12 @@ kernel's skip edges, on the CPU.
   Pallas kernel in interpret mode on explicit ages at the edges where the
   kernel skips draws (``chip_smoke.skip_edge_inputs``). The kernel itself
   is held to ``delivery_new_bits_ref`` on the card (tests/test_torch_cuda.py).
+- The lane tile (``EngineConfig.pallas_lanes``): refused with the Pallas
+  wrapper's message (run in interpret mode) when it is not a positive
+  multiple of 128, on the wrapper and through the engine; passed to the
+  wrapper on the single-cluster, stream, fleet and sharded routes; and
+  ``examples/delivery_autotune --interpret`` checking every width against
+  the first with JAX's keys.
 """
 
 from types import SimpleNamespace
@@ -125,3 +131,121 @@ def test_plain_version_matches_jnp_path_and_pallas_at_skip_edges(kind, c, spread
     )[:c]
     np.testing.assert_array_equal(got, np.asarray(jnp_path))
     np.testing.assert_array_equal(got, np.asarray(pallas))
+
+
+# -- the lane tile (``EngineConfig.pallas_lanes``) ------------------------------
+
+
+@pytest.mark.parametrize("lanes", [100, 0])
+def test_lane_tile_is_refused_with_the_pallas_wrappers_message(lanes):
+    k, c, n = 10, 5, 150
+    blocked, age, epoch = skip_edge_inputs("edges", c, k, n, 1, 7, CPU)
+    with pytest.raises(ValueError) as jax_error:
+        jpk.delivery_new_bits_pallas(
+            jnp.asarray(_u32.to_numpy(blocked)), jnp.asarray(age.numpy()),
+            jnp.asarray(epoch.numpy()).astype(jnp.uint32), k, 1, 1000, interpret=True, lanes=lanes,
+        )
+    with pytest.raises(ValueError) as port_error:
+        tk.delivery_new_bits(blocked, age, epoch, k, c, 1, 1000, lanes=lanes)
+    assert str(port_error.value) == str(jax_error.value)
+    # The engine's config reaches the same check on every device.
+    from rapid_tpu_torch.models.virtual_cluster import VirtualCluster
+
+    vc = VirtualCluster.create(60, n_slots=64, k=3, h=3, l=1, cohorts=4, pallas_lanes=lanes,
+                               device="cpu")
+    with pytest.raises(ValueError) as engine_error:
+        vc.step()
+    assert str(engine_error.value) == str(jax_error.value)
+
+
+def test_every_lane_tile_gives_the_same_words():
+    k, c, n = 10, 40, 777
+    blocked, age, epoch = skip_edge_inputs("edges", c, k, n, 2, 3, CPU)
+    want = tk.delivery_new_bits_ref(blocked, age, epoch, k, c, 2, 1000)
+    for lanes in (128, 256, 512, 1024, 4096):
+        assert torch.equal(tk.delivery_new_bits(blocked, age, epoch, k, c, 2, 1000, lanes=lanes),
+                           want)
+
+
+@pytest.fixture
+def lanes_seen(monkeypatch):
+    """The ``lanes`` of every call of the engine's delivery seam."""
+    from rapid_tpu_torch.models import virtual_cluster
+
+    seen = []
+    real = virtual_cluster.delivery_new_bits
+
+    def spy(*args, **kwargs):
+        seen.append(kwargs.get("lanes"))
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(virtual_cluster, "delivery_new_bits", spy)
+    return seen
+
+
+def _churned(lanes, seed=0, **knobs):
+    from rapid_tpu_torch.models.virtual_cluster import VirtualCluster
+
+    vc = VirtualCluster.create(56, n_slots=64, k=3, h=3, l=1, cohorts=4, fd_threshold=2,
+                               delivery_spread=1, seed=seed, pallas_lanes=lanes, device="cpu",
+                               **knobs)
+    vc.assign_cohorts_roundrobin()
+    vc.crash([1, 9])
+    return vc
+
+
+def test_lane_tile_reaches_the_wrapper_on_the_single_and_stream_routes(lanes_seen):
+    vc = _churned(512)
+    vc.step()
+    vc.stream_step()
+    vc.run_to_decision(max_steps=8)
+    assert lanes_seen and set(lanes_seen) == {512}
+
+
+def test_lane_tile_reaches_the_wrapper_on_the_fleet_route(lanes_seen):
+    from rapid_tpu_torch.tenancy import TenantFleet
+
+    fleet = TenantFleet.from_clusters([_churned(256, seed=i) for i in range(3)])
+    assert fleet.cfg.pallas_lanes == 256
+    fleet.step()
+    fleet.run_until_membership([54, 54, 54], max_steps=16)
+    assert lanes_seen and set(lanes_seen) == {256}
+
+
+def test_lane_tile_reaches_the_wrapper_on_the_sharded_route(lanes_seen):
+    from rapid_tpu_torch.parallel import mesh as pm
+    from rapid_tpu_torch.tools.analysis.device_program import one_rank_group
+
+    vc = _churned(1024)
+    with one_rank_group("cpu"):
+        m = pm.make_mesh(shape=None, device_type="cpu")
+        step = pm.make_sharded_step(vc.cfg, m)
+        step(pm.shard_state(vc.state, m), pm.shard_faults(vc.faults, m))
+    assert lanes_seen == [1024]
+
+
+def test_delivery_autotune_interpret_is_the_routing_only(capsys, monkeypatch):
+    import json
+
+    from rapid_tpu_torch.examples import delivery_autotune
+
+    assert delivery_autotune.main(["--device", "cpu", "--interpret"]) == 0
+    rows = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    # JAX's keys, in its interpret smoke: no timing, no winner, a note.
+    assert [row["shape"] for row in rows] == [[64, 4_000], [8, 4_000]]
+    for row in rows:
+        assert set(row) == {"platform", "shape", "spread", "per_width_ms", "best_width", "note"}
+        assert (row["platform"], row["spread"], row["per_width_ms"], row["best_width"]) == (
+            "cpu", 2, {}, None)
+    # Every width is held against the first: a width that changed a word fails.
+    real = tk.delivery_new_bits
+
+    def skewed(*args, lanes=128, **kwargs):
+        out = real(*args, lanes=lanes, **kwargs)
+        return out ^ 1 if lanes == 512 else out
+
+    monkeypatch.setattr(tk, "delivery_new_bits", skewed)
+    with pytest.raises(AssertionError, match="lane tile 512 differs from 128"):
+        delivery_autotune.main(["--device", "cpu", "--interpret"])
+    with pytest.raises(RuntimeError, match="autotune needs the card"):
+        delivery_autotune.main(["--device", "cpu"])

@@ -260,7 +260,8 @@ def test_delivery_wrapper_raises_instead_of_falling_back(fault):
 # -- the command lines and examples ------------------------------------------
 
 ENTRY_POINTS = [f"rapid_tpu_torch.examples.{name}" for name in (
-    "agent_grpc_transport", "bootstrap_bench", "fleet_khl_autotune", "host_scale_ceiling",
+    "agent_grpc_transport", "bootstrap_bench", "delivery_autotune", "fleet_khl_autotune",
+    "host_scale_ceiling",
     "kernel_microbench", "khl_sensitivity", "standalone_agent", "udp_loss_curve",
     "virtual_cluster_demo",
 )] + [f"rapid_tpu_torch.tools.{name}" for name in (
@@ -335,6 +336,7 @@ _NO_CARD = {
     "examples.fleet_khl_autotune": ["--n", "64"],
     "examples.host_scale_ceiling": ["--sizes", "8"],
     "examples.kernel_microbench": ["--n", "100"],
+    "examples.delivery_autotune": ["--widths", "128,256"],
 }
 
 
@@ -380,8 +382,9 @@ print("torch" in sys.modules, bad)
 
 def test_analysis_tier_imports_no_jax_rapid_tpu_or_jax_tools():
     # Every module of the tier imports with jax, rapid_tpu and JAX's
-    # tools package blocked, and only device_program's functions bring in
-    # torch (lazily): importing the tier alone loads no torch.
+    # tools package blocked, and only the functions of the families that
+    # run the engine (device_program, cost_model, dataflow) bring in torch
+    # (lazily): importing the tier alone loads no torch.
     out = subprocess.run(
         [sys.executable, "-c", _ANALYSIS_PROBE, *ANALYSIS_MODULES], cwd=REPO,
         capture_output=True, text=True, check=True,
@@ -396,5 +399,5 @@ def test_analysis_source_imports_no_jax_rapid_tpu_or_jax_tools(name):
     source = (REPO / "rapid_tpu_torch" / sub / f"{name}.py").read_text()
     roots = {imported.split(".")[0] for imported in _imported_names(source)}
     assert not roots & {"jax", "jaxlib", "rapid_tpu", "tools", "analysis"}, roots
-    if name != "device_program":
+    if name not in ("device_program", "cost_model", "dataflow"):
         assert "torch" not in roots, name

@@ -40,6 +40,8 @@ import staticcheck as jax_staticcheck  # noqa: E402
 
 from rapid_tpu_torch.tools.analysis import (  # noqa: E402
     core,
+    cost_model,
+    dataflow,
     device_program,
     sharding,
     sync_safety,
@@ -124,6 +126,12 @@ TORCH_CORPUS_CHECKERS = {
     "implicit_device.py": ("rapid_tpu_torch/tenancy/_corpus.py", sync_safety.check_sync_safety),
     "clean_implicit_device.py": (
         "rapid_tpu_torch/tenancy/_corpus.py", sync_safety.check_sync_safety),
+    "cost_scaling_regression.py": ("rapid_tpu_torch/models/_corpus.py", cost_model.check_cost_model),
+    "clean_cost_scaling_regression.py": (
+        "rapid_tpu_torch/models/_corpus.py", cost_model.check_cost_model),
+    "dataflow_observer_leak.py": ("rapid_tpu_torch/models/_corpus.py", dataflow.check_dataflow),
+    "clean_dataflow_observer_leak.py": (
+        "rapid_tpu_torch/models/_corpus.py", dataflow.check_dataflow),
 }
 
 #: Each port hot-set file -> the JAX module it stands for.
@@ -194,6 +202,8 @@ def test_each_torch_check_has_a_defect_file():
     assert checks == {
         "host-sync-in-hot-path", "host-sync-in-stream", "dtype-widening",
         "uncounted-host-read", "index-store-sync", "pageable-upload", "implicit-device",
+        "cost-scaling-regression", "cost-superlinear", "cost-unexplained",
+        "dataflow-observer-effect", "dataflow-cross-tenant", "dataflow-dense-op",
     }
 
 
@@ -208,10 +218,14 @@ def test_corpora_are_excluded_from_tree_sweeps():
 
 
 def test_whole_port_tree_is_finding_free():
-    # Every family runs, the program lock included; its collection is
-    # warmed first, so the budget pins the ANALYSIS cost (process CPU time,
-    # not wall clock: a loaded machine must not fail the gate).
+    # Every family runs, the program, cost and dataflow locks included;
+    # their collections are warmed first, so the budget pins the ANALYSIS
+    # cost (process CPU time, not wall clock: a loaded machine must not
+    # fail the gate).
     device_program.collect_facts()
+    cost_model.collect_ladder()
+    cost_model.collect_quiescent_cost()
+    dataflow.collect_dataflow()
     started = time.process_time()
     findings = core.run()
     elapsed = time.process_time() - started
@@ -297,7 +311,7 @@ def test_families_list_modules_2_to_15():
     assert names == [
         "names", "signatures", "deadcode", "clocks", "concurrency", "taskflow",
         "determinism", "dispatch", "wire_schema", "ledger", "chaosvocab", "telemetry",
-        "sharding", "sync_safety", "device_program",
+        "sharding", "sync_safety", "device_program", "cost_model", "dataflow",
     ]
     out = subprocess.run(
         [sys.executable, "-m", "rapid_tpu_torch.tools.staticcheck", "--families"],
