@@ -1,0 +1,7 @@
+"""device.idle.latency: 1 - device busy time over the fenced session's wall, in %."""
+
+from benchmark import readers
+
+
+def read(run):
+    return readers.device_idle(run)
