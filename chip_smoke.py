@@ -131,8 +131,8 @@ exits non-zero:
    present, names equal to a 6-tenant CPU fleet's) and phase 15's stream
    cluster under a ``Supervisor``, scraped between waves (its ``stream``
    and ``recovery`` names equal to the CPU's). One more N=100,000 churn
-   under ``profiling.trace`` inside ``annotate("churn")``: the exported
-   trace holds the delivery kernel and the span, and the churn's results
+   under ``profiling.trace``: the exported trace holds the delivery kernel
+   and the program's ``run_until_membership`` span, and the churn's results
    equal the unprofiled one's. Last, ptxas's facts of every delivery
    kernel instance (``compiled_memory_analysis("delivery")``);
 20. host_path: the host membership path (``rapid_tpu_torch.protocol``)
@@ -2388,7 +2388,7 @@ def phase_observability(dev):
                         "text_bytes": per_wave[-1]["text_bytes"],
                         "reads_per_scrape": per_wave[-1]["reads_per_scrape"]}
 
-    # The profiler around one full-width churn, inside an annotated span.
+    # The profiler around one full-width churn, its entry point a span.
     root = tempfile.mkdtemp(prefix="rapid-profile-")
     try:
         vc, _ = churn_cluster(n, n_join, HEADLINE["n_crash"], HEADLINE["cohorts"], 11, dev,
@@ -2397,8 +2397,7 @@ def phase_observability(dev):
         delivery_new_bits.launches = 0
         start = time.perf_counter()
         with profiling.trace(root):
-            with profiling.annotate("churn"):
-                profiled = resolve(vc, n)
+            profiled = resolve(vc, n)
         profiled_ms = (time.perf_counter() - start) * 1e3
         launches["observability_profiled_churn"] = delivery_new_bits.launches
         check(profiled == churned, f"profiled churn {profiled} != unprofiled {churned}")
@@ -2412,7 +2411,8 @@ def phase_observability(dev):
             "delivery_kernel_events": sum(
                 1 for e in events
                 if e.get("cat") == "kernel" and "delivery_new_bits_kernel" in e.get("name", "")),
-            "churn_spans": sum(1 for e in events if e.get("name") == "churn"),
+            "churn_spans": sum(1 for e in events
+                               if e.get("name") == profiling.PREFIX + "run_until_membership"),
         }
         check(report["profiler"]["delivery_kernel_events"] > 0,
               "the profiler's trace holds no delivery_new_bits_kernel event")
@@ -3252,7 +3252,7 @@ def phase_config_resume(dev, native, captured):
     vc, victims = endpoint_churn(resumed, n, n_join, n_crash, dev)
     torch.cuda.synchronize(dev)
     engine_build_ms = (time.perf_counter() - start) * 1e3
-    perm = np.asarray(_host.read(vc.state.ring_perm))
+    perm = np.asarray(_host.read(vc.state.ring_perm, "observer"))
     for r in range(k):
         slots = perm[r][perm[r] < n]
         check([resumed[i] for i in slots] == view.ring(r), f"the view's ring {r} is not the engine's")
@@ -3290,14 +3290,16 @@ def syncs_only_in_reads(dev):
 
     real = _host.read
 
-    def read(t):  # _host.read with the check lifted, counted on the real one
-        real.count += 1
+    def read(t, site):  # _host.read with the check lifted
         torch.cuda.set_sync_debug_mode("default")
         try:
-            return t.tolist()
+            return real(t, site)
         finally:
             torch.cuda.set_sync_debug_mode("error")
 
+    # _host.read counts through its module-level name, which is this
+    # wrapper while it is installed: it carries the count meanwhile.
+    read.count = real.count
     torch.cuda.synchronize(dev)
     _host.read = read
     torch.cuda.set_sync_debug_mode("error")
@@ -3306,6 +3308,7 @@ def syncs_only_in_reads(dev):
     finally:
         torch.cuda.set_sync_debug_mode("default")
         _host.read = real
+        real.count = read.count
 
 
 def nccl_group():
@@ -3457,7 +3460,8 @@ def sharded_churn(dev, mesh, captured):
         launches, reads = delivery_new_bits.launches, _host.read.count - reads0
         check(resolved, f"{side} churn unresolved: {cuts} cuts in {steps} rounds")
         check(launches == steps, f"{side} churn: {launches} launches in {steps} rounds")
-        result = (steps, cuts, resolved, tuple(sizes), _host.read(sync_checksum(state, faults)))
+        result = (steps, cuts, resolved, tuple(sizes),
+                  _host.read(sync_checksum(state, faults), "sync_checksum"))
         lanes = plane_lanes(state)
         if side in want:
             check(want[side][0] == result, f"{side} churn differs between its samples")
@@ -3540,11 +3544,11 @@ def sharded_scale_point(dev, mesh, captured):
         ms = (time.perf_counter() - start) * 1e3
         launches, reads = delivery_new_bits.launches, _host.read.count - reads0
         state = local_tree(state)
-        members = _host.read(state.n_members)
+        members = _host.read(state.n_members, "observer")
         check(decided and members == n - n // 100, f"{side} N={n}: {decided}, {members}")
         check(launches == rounds, f"{side} N={n}: {launches} launches in {rounds} rounds")
-        result = (rounds, members, _host.read(sync_checksum(state, faults)),
-                  _host.read(_u32_pair(state)))
+        result = (rounds, members, _host.read(sync_checksum(state, faults), "sync_checksum"),
+                  _host.read(_u32_pair(state), "observer"))
         want.setdefault((side, seed), result)
         out = dict(seed=seed, ms=ms, rounds=rounds, host_reads=reads,
                    host_reads_per_round=reads / rounds, kernel_launches=launches)

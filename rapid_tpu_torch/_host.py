@@ -4,7 +4,9 @@ The JAX engine runs its loops and ``lax.cond`` gates on the device. The port
 runs them in Python, so every gate it branches on is a read that waits for
 the device. All such reads in the engine go through :func:`read`, whose
 ``count`` attribute says how many were made (``chip_smoke.py`` reports it
-per round); :func:`upload` counts its calls the same way.
+per round); :func:`upload` counts its calls the same way. Each read names
+its call site from :data:`READ_SITES`, and the process keeps a count and
+the nanoseconds spent waiting in it per site (:func:`site_totals`).
 
 The other way, a plain ``torch.from_numpy(arr).to("cuda")`` copies from
 pageable memory and synchronizes the stream: every upload would wait for
@@ -14,19 +16,84 @@ spelling, which does not wait.
 
 from __future__ import annotations
 
-from typing import List
+import time
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
+from rapid_tpu_torch.utils import profiling
 
-def read(t: torch.Tensor):
-    """``t.tolist()`` (a Python scalar for a 0-d tensor), counted."""
+#: The registered read sites: every call of :func:`read` names one.
+READ_SITES = frozenset({
+    # The single cluster's round and its wave loop.
+    "branch_point",
+    "classic_outcome",
+    "invalidation_gate",
+    "membership_predicate",
+    "decision_observation",
+    "join_admissibility",
+    # The fleet's loops.
+    "fleet_wave_observation",
+    "fleet_decision_predicate",
+    "fleet_decision_observation",
+    # Barriers, planes and observers.
+    "sync_checksum",
+    "telemetry_digest",
+    "trace_digest",
+    "stream_fetch",
+    "observer",
+    "health",
+    # The host membership path's device adapters.
+    "detector_proposal",
+    "vote_tally",
+    # Harnesses built on the engine.
+    "chaos_soak",
+    "oracle_probe",
+    "khl_sweep",
+})
+
+#: Each site's span (``read.<site>``).
+_SPANS = {site: "read." + site for site in READ_SITES}
+profiling.register(*_SPANS.values())
+#: Per-site totals of this process: site -> [reads, ns waited in them].
+_totals: Dict[str, List[int]] = {site: [0, 0] for site in READ_SITES}
+#: Nanoseconds waited in every read of this process.
+_ns = 0
+
+
+def read(t: torch.Tensor, site: str):
+    """``t.tolist()`` (a Python scalar for a 0-d tensor), counted, and
+    timed into ``site``'s totals. Raises ``ValueError`` for a site not in
+    :data:`READ_SITES`."""
+    global _ns
+    totals = _totals.get(site)
+    if totals is None:
+        raise ValueError(
+            f"unregistered read site {site!r}; add it to rapid_tpu_torch._host.READ_SITES"
+        )
     read.count += 1
-    return t.tolist()
+    with profiling.span(_SPANS[site]):
+        start = time.perf_counter_ns()
+        out = t.tolist()
+        ns = time.perf_counter_ns() - start
+    totals[0] += 1
+    totals[1] += ns
+    _ns += ns
+    return out
 
 
 read.count = 0
+
+
+def read_ns() -> int:
+    """Nanoseconds waited in every read of this process so far."""
+    return _ns
+
+
+def site_totals() -> Dict[str, Tuple[int, int]]:
+    """``{site: (reads, ns waited)}`` of this process so far."""
+    return {site: (count, ns) for site, (count, ns) in _totals.items()}
 
 
 def upload(arr: np.ndarray, device: torch.device, keep: List[torch.Tensor]) -> torch.Tensor:

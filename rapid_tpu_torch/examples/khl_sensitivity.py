@@ -92,9 +92,9 @@ def detector_experiment(cfg, state, blocked_rows, budget: int):
             got = got | proposed_now
             t = t + running.to(torch.int32)
             ran += 1
-        if _host.read(got.all()):
+        if _host.read(got.all(), "khl_sweep"):
             break
-    return first_mask[0].cpu().numpy(), got[0].cpu().numpy(), _host.read(t)
+    return first_mask[0].cpu().numpy(), got[0].cpu().numpy(), _host.read(t, "khl_sweep")
 
 
 def run_once(n, k, h, l, f, cohorts, seed, delivery_spread=128, stagger=0,

@@ -89,13 +89,20 @@ from rapid_tpu_torch.ops.rings import (
     predecessor_of_keys,
     ring_topology_from_perm,
 )
-from rapid_tpu_torch.utils import engine_telemetry, exposition
+from rapid_tpu_torch.utils import engine_telemetry, exposition, profiling
 from rapid_tpu_torch.utils.dispatch import DispatchSeam
 from rapid_tpu_torch.utils.health import NodeHealth
 from rapid_tpu_torch.utils.metrics import Metrics
 
 # The mesh axes a sharded round communicates over (``parallel/mesh.py``).
 _NODES, _COHORT = ("nodes",), ("cohort",)
+
+# The spans of a round and its phases, as :func:`_compute_round` numbers
+# them, and of a view change (``profiling.span``).
+profiling.register(
+    "round", "edge_masks", "fd_tick", "delivery", "cut_detection", "votes", "tally",
+    "classic", "commit", "planes", "view_change",
+)
 
 
 def cohort_words(c: int) -> int:
@@ -143,6 +150,7 @@ def _loop(ctx):
     return contextlib.nullcontext() if ctx is None else ctx.loop()
 
 
+@profiling.spanned("edge_masks")
 def _edge_masks(cfg: EngineConfig, state: EngineState, faults: FaultInputs, ctx=None):
     """Per-edge observer masks: ``(observer_active[t, n, k],
     blocked_rows[t, w*k, n])``. ``blocked_rows`` packs "cohort c cannot
@@ -402,6 +410,7 @@ def _classic_attempt(cfg: EngineConfig, state: EngineState, faults: FaultInputs,
     )
 
 
+@profiling.spanned("round")
 def _compute_round(
     cfg: EngineConfig,
     state: EngineState,
@@ -443,217 +452,226 @@ def _compute_round(
     observer_active, blocked_rows = edge_masks
 
     # 1. Failure-detector tick.
-    fd_count, fd_hist, fd_fired, fire = _fd_tick(cfg, state, faults, observer_active)
-    fire_round = torch.where(
-        fire, state.round_idx[:, None, None].to(state.fire_round.dtype), state.fire_round
-    )
-    alerts_emitted = fire.flatten(1).sum(-1, dtype=torch.int32)
+    with profiling.span("fd_tick"):
+        fd_count, fd_hist, fd_fired, fire = _fd_tick(cfg, state, faults, observer_active)
+        fire_round = torch.where(
+            fire, state.round_idx[:, None, None].to(state.fire_round.dtype), state.fire_round
+        )
+        alerts_emitted = fire.flatten(1).sum(-1, dtype=torch.int32)
 
     # 2. Delivery, zeroed once every fired alert has matured (the JAX
     #    version skips the work with lax.cond; the select gives the same
     #    bits, since matured alerts are already merged into report_bits).
-    last_fired = torch.where(fd_fired, fire_round, -1).flatten(1).amax(-1).to(torch.int32)
-    any_fired = fd_fired.flatten(1).any(-1)
-    if ctx is not None:
-        alerts_emitted = ctx.sum(alerts_emitted, _NODES, "alerts emitted")
-        gate = ctx.max(torch.stack([last_fired, any_fired.to(torch.int32)]), _NODES,
-                       "delivery gate")
-        last_fired, any_fired = gate[0], gate[1] != 0
-    need_delivery = any_fired & (state.round_idx <= last_fired + cfg.delivery_spread)
-    delivered = _deliver_alerts(cfg, state, fire_round, blocked_rows, ctx)
-    new_bits = torch.where(need_delivery[:, None, None], delivered, 0)
-    heard_down = ((new_bits != 0) & state.alive[:, None, :]).any(-1)
-    if ctx is not None:
-        heard_down = ctx.max(heard_down, _NODES, "heard down", sharded=_COHORT)
+    with profiling.span("delivery"):
+        last_fired = torch.where(fd_fired, fire_round, -1).flatten(1).amax(-1).to(torch.int32)
+        any_fired = fd_fired.flatten(1).any(-1)
+        if ctx is not None:
+            alerts_emitted = ctx.sum(alerts_emitted, _NODES, "alerts emitted")
+            gate = ctx.max(torch.stack([last_fired, any_fired.to(torch.int32)]), _NODES,
+                           "delivery gate")
+            last_fired, any_fired = gate[0], gate[1] != 0
+        need_delivery = any_fired & (state.round_idx <= last_fired + cfg.delivery_spread)
+        delivered = _deliver_alerts(cfg, state, fire_round, blocked_rows, ctx)
+        new_bits = torch.where(need_delivery[:, None, None], delivered, 0)
+        heard_down = ((new_bits != 0) & state.alive[:, None, :]).any(-1)
+        if ctx is not None:
+            heard_down = ctx.max(heard_down, _NODES, "heard down", sharded=_COHORT)
 
     # 3. Cut detection per cohort.
-    report_bits, released, announced, seen_down, proposed_now, prop_masks = (
-        _cohort_cut_detection(cfg, state, new_bits, heard_down, select=select, ctx=ctx)
-    )
-    prop_hi_new, prop_lo_new = masked_set_hash(
-        state.id_hi[:, None, :], state.id_lo[:, None, :], prop_masks, ctx, _COHORT
-    )
-    prop_hi = torch.where(proposed_now, prop_hi_new, state.prop_hi)
-    prop_lo = torch.where(proposed_now, prop_lo_new, state.prop_lo)
-    prop_mask = torch.where(proposed_now[:, :, None], prop_masks, state.prop_mask)
+    with profiling.span("cut_detection"):
+        report_bits, released, announced, seen_down, proposed_now, prop_masks = (
+            _cohort_cut_detection(cfg, state, new_bits, heard_down, select=select, ctx=ctx)
+        )
+        prop_hi_new, prop_lo_new = masked_set_hash(
+            state.id_hi[:, None, :], state.id_lo[:, None, :], prop_masks, ctx, _COHORT
+        )
+        prop_hi = torch.where(proposed_now, prop_hi_new, state.prop_hi)
+        prop_lo = torch.where(proposed_now, prop_lo_new, state.prop_lo)
+        prop_mask = torch.where(proposed_now[:, :, None], prop_masks, state.prop_mask)
 
     # 4. Fast-round votes, once per member per configuration. Every member
     #    reads its cohort's proposal, so a sharded round assembles the whole
     #    [c] lanes first.
-    all_announced, all_prop_hi, all_prop_lo = announced, prop_hi, prop_lo
-    if ctx is not None:
-        lanes = ctx.assemble_cohorts(
-            torch.stack([announced.to(torch.int32), prop_hi, prop_lo]), "proposal lanes"
-        )
-        all_announced, all_prop_hi, all_prop_lo = lanes[0] != 0, lanes[1], lanes[2]
-    cohort = state.cohort_of.clamp(0, c - 1).to(torch.int64)  # JAX clamps its gathers
-    can_vote = state.alive & ~faults.crashed & ~state.vote_valid & all_announced.gather(1, cohort)
-    vote_hi = torch.where(can_vote, all_prop_hi.gather(1, cohort), state.vote_hi)
-    vote_lo = torch.where(can_vote, all_prop_lo.gather(1, cohort), state.vote_lo)
-    vote_valid = state.vote_valid | can_vote
+    with profiling.span("votes"):
+        all_announced, all_prop_hi, all_prop_lo = announced, prop_hi, prop_lo
+        if ctx is not None:
+            lanes = ctx.assemble_cohorts(
+                torch.stack([announced.to(torch.int32), prop_hi, prop_lo]), "proposal lanes"
+            )
+            all_announced, all_prop_hi, all_prop_lo = lanes[0] != 0, lanes[1], lanes[2]
+        cohort = state.cohort_of.clamp(0, c - 1).to(torch.int64)  # JAX clamps its gathers
+        can_vote = state.alive & ~faults.crashed & ~state.vote_valid & all_announced.gather(1, cohort)
+        vote_hi = torch.where(can_vote, all_prop_hi.gather(1, cohort), state.vote_hi)
+        vote_lo = torch.where(can_vote, all_prop_lo.gather(1, cohort), state.vote_lo)
+        vote_valid = state.vote_valid | can_vote
 
     # 5. Quorum tally.
-    tally = tally_candidates(
-        vote_hi, vote_lo, vote_valid, all_prop_hi, all_prop_lo, all_announced, state.n_members,
-        ctx=ctx,
-    )
-    fast_decided = tally.decided
+    with profiling.span("tally"):
+        tally = tally_candidates(
+            vote_hi, vote_lo, vote_valid, all_prop_hi, all_prop_lo, all_announced, state.n_members,
+            ctx=ctx,
+        )
+        fast_decided = tally.decided
 
-    # 5a. A fast-round vote primes the classic acceptor state at rank (1, 1).
-    prime = can_vote & (state.cp_rnd_r < 1)
-    cp = (
-        torch.where(prime, 1, state.cp_rnd_r),
-        torch.where(prime, 1, state.cp_rnd_i),
-        torch.where(prime, 1, state.cp_vrnd_r),
-        torch.where(prime, 1, state.cp_vrnd_i),
-        torch.where(prime, state.cohort_of, state.cp_vval_src),
-    )
-    stalled = all_announced.any(-1) & ~fast_decided
-    rounds_undecided = torch.where(stalled, state.rounds_undecided + 1, state.rounds_undecided)
-    fallback_due = (rounds_undecided >= cfg.fallback_rounds) & stalled
+        # 5a. A fast-round vote primes the classic acceptor state at rank (1, 1).
+        prime = can_vote & (state.cp_rnd_r < 1)
+        cp = (
+            torch.where(prime, 1, state.cp_rnd_r),
+            torch.where(prime, 1, state.cp_rnd_i),
+            torch.where(prime, 1, state.cp_vrnd_r),
+            torch.where(prime, 1, state.cp_vrnd_i),
+            torch.where(prime, state.cohort_of, state.cp_vval_src),
+        )
+        stalled = all_announced.any(-1) & ~fast_decided
+        rounds_undecided = torch.where(stalled, state.rounds_undecided + 1, state.rounds_undecided)
+        fallback_due = (rounds_undecided >= cfg.fallback_rounds) & stalled
 
     # 5b. Classic fallback: a host branch for the single cluster (it is rare
     #     and costs a few [c, n] passes), a per-tenant select in a fleet.
-    if select:
-        with _gate(ctx):
-            *attempt, fb_decided, chosen = _classic_attempt(
-                cfg, state, faults, all_announced, cp, ctx
-            )
-        cp = tuple(torch.where(fallback_due[:, None], a, b) for a, b in zip(attempt, cp))
-        fb_decided = fallback_due & fb_decided
-        chosen = torch.where(fallback_due, chosen, -1)
-    else:
-        # The eager round's branch point (JAX's lax.cond predicate), read once a round.
-        fast_host, fallback_host = _host.read(torch.stack([fast_decided, fallback_due]).view(-1))  # host-sync-ok: branch point
-        if fallback_host:
+    with profiling.span("classic"):
+        if select:
             with _gate(ctx):
-                *cp, fb_decided, chosen = _classic_attempt(
+                *attempt, fb_decided, chosen = _classic_attempt(
                     cfg, state, faults, all_announced, cp, ctx
                 )
+            cp = tuple(torch.where(fallback_due[:, None], a, b) for a, b in zip(attempt, cp))
+            fb_decided = fallback_due & fb_decided
+            chosen = torch.where(fallback_due, chosen, -1)
         else:
-            fb_decided = torch.zeros((t,), dtype=torch.bool, device=dev)
-            chosen = torch.full((t,), -1, dtype=torch.int32, device=dev)
-    classic_epoch = torch.where(fallback_due, state.classic_epoch + 1, state.classic_epoch)
-    cp_rnd_r, cp_rnd_i, cp_vrnd_r, cp_vrnd_i, cp_vval_src = cp
+            # The eager round's branch point (JAX's lax.cond predicate), read once a round.
+            fast_host, fallback_host = _host.read(torch.stack([fast_decided, fallback_due]).view(-1), "branch_point")  # host-sync-ok: branch point
+            if fallback_host:
+                with _gate(ctx):
+                    *cp, fb_decided, chosen = _classic_attempt(
+                        cfg, state, faults, all_announced, cp, ctx
+                    )
+            else:
+                fb_decided = torch.zeros((t,), dtype=torch.bool, device=dev)
+                chosen = torch.full((t,), -1, dtype=torch.int32, device=dev)
+        classic_epoch = torch.where(fallback_due, state.classic_epoch + 1, state.classic_epoch)
+        cp_rnd_r, cp_rnd_i, cp_vrnd_r, cp_vrnd_i, cp_vval_src = cp
 
-    decided = fast_decided | fb_decided
-    if select:
-        decided_out = decided
-    else:
-        decided_out = fast_host or (fallback_host and _host.read(fb_decided.view(-1))[0])  # host-sync-ok: the classic attempt's outcome, read only in a round that ran it
-    winner_cohort = torch.where(
-        fast_decided,
-        torch.argmax(
-            (
-                all_announced
-                & (all_prop_hi == tally.winner_hi[:, None])
-                & (all_prop_lo == tally.winner_lo[:, None])
-            ).to(torch.int32),
-            -1,
-        ),
-        chosen.clamp(min=0),
-    )
-    cohort_ids = torch.arange(c_l, dtype=torch.int64, device=dev) + cohort_offset
-    in_winner = (prop_mask & (cohort_ids == winner_cohort[:, None])[:, :, None]).any(1)
-    if ctx is not None and (select or decided_out):
-        # The winning cohort's row lies on one cohort shard (an undecided
-        # single cluster's mask is all false whatever the rows hold).
-        with _gate(ctx):
-            in_winner = ctx.max(in_winner, _COHORT, "winner mask", sharded=_NODES)
-    winner_mask = decided[:, None] & in_winner
+    # 6. The decision, the winning cut and the round's new state.
+    with profiling.span("commit"):
+        decided = fast_decided | fb_decided
+        if select:
+            decided_out = decided
+        else:
+            decided_out = fast_host or (fallback_host and _host.read(fb_decided.view(-1), "classic_outcome")[0])  # host-sync-ok: the classic attempt's outcome, read only in a round that ran it
+        winner_cohort = torch.where(
+            fast_decided,
+            torch.argmax(
+                (
+                    all_announced
+                    & (all_prop_hi == tally.winner_hi[:, None])
+                    & (all_prop_lo == tally.winner_lo[:, None])
+                ).to(torch.int32),
+                -1,
+            ),
+            chosen.clamp(min=0),
+        )
+        cohort_ids = torch.arange(c_l, dtype=torch.int64, device=dev) + cohort_offset
+        in_winner = (prop_mask & (cohort_ids == winner_cohort[:, None])[:, :, None]).any(1)
+        if ctx is not None and (select or decided_out):
+            # The winning cohort's row lies on one cohort shard (an undecided
+            # single cluster's mask is all false whatever the rows hold).
+            with _gate(ctx):
+                in_winner = ctx.max(in_winner, _COHORT, "winner mask", sharded=_NODES)
+        winner_mask = decided[:, None] & in_winner
 
-    round_state = state._replace(
-        fd_count=fd_count,
-        fd_hist=fd_hist,
-        fd_fired=fd_fired,
-        fire_round=fire_round,
-        round_idx=state.round_idx + 1,
-        report_bits=report_bits,
-        seen_down=seen_down,
-        released=released,
-        announced=announced,
-        prop_mask=prop_mask,
-        prop_hi=prop_hi,
-        prop_lo=prop_lo,
-        vote_hi=vote_hi,
-        vote_lo=vote_lo,
-        vote_valid=vote_valid,
-        rounds_undecided=rounds_undecided,
-        cp_rnd_r=cp_rnd_r,
-        cp_rnd_i=cp_rnd_i,
-        cp_vrnd_r=cp_vrnd_r,
-        cp_vrnd_i=cp_vrnd_i,
-        cp_vval_src=cp_vval_src,
-        classic_epoch=classic_epoch,
-    )
-    events = StepEvents(
-        decided=decided,
-        fast_decided=fast_decided,
-        winner_mask=winner_mask,
-        proposals_announced=proposed_now,
-        alerts_emitted=alerts_emitted,
-        total_votes=tally.total_votes,
-        max_votes=tally.max_count,
-        prop_hi=prop_hi,
-        prop_lo=prop_lo,
-    )
+        round_state = state._replace(
+            fd_count=fd_count,
+            fd_hist=fd_hist,
+            fd_fired=fd_fired,
+            fire_round=fire_round,
+            round_idx=state.round_idx + 1,
+            report_bits=report_bits,
+            seen_down=seen_down,
+            released=released,
+            announced=announced,
+            prop_mask=prop_mask,
+            prop_hi=prop_hi,
+            prop_lo=prop_lo,
+            vote_hi=vote_hi,
+            vote_lo=vote_lo,
+            vote_valid=vote_valid,
+            rounds_undecided=rounds_undecided,
+            cp_rnd_r=cp_rnd_r,
+            cp_rnd_i=cp_rnd_i,
+            cp_vrnd_r=cp_vrnd_r,
+            cp_vrnd_i=cp_vrnd_i,
+            cp_vval_src=cp_vval_src,
+            classic_epoch=classic_epoch,
+        )
+        events = StepEvents(
+            decided=decided,
+            fast_decided=fast_decided,
+            winner_mask=winner_mask,
+            proposals_announced=proposed_now,
+            alerts_emitted=alerts_emitted,
+            total_votes=tally.total_votes,
+            max_votes=tally.max_count,
+            prop_hi=prop_hi,
+            prop_lo=prop_lo,
+        )
     if telem is None:
         return round_state, decided_out, winner_mask, events, None, None
 
-    # Device telemetry plane: written here, never read by the round. The
-    # scalars reuse what the round computed (``stalled`` is the conflict
-    # flag: announced and no fast decision).
-    active, invalidated = telemetry_cut_masks(
-        state.report_bits, new_bits, report_bits, state.alive | state.join_pending, cfg.h, cfg.l
-    )
-    tally_at_decision = torch.where(decided, tally.max_count, 0)
-    bins = torch.arange(TELEMETRY_BUCKETS, dtype=torch.int32, device=dev)
-    bucket = undecided_log2_bucket(rounds_undecided, TELEMETRY_BUCKETS)
-    telem = TelemetryLanes(
-        tl_rounds=telem.tl_rounds + 1,
-        tl_alerts=telem.tl_alerts + alerts_emitted,
-        tl_active=telem.tl_active + active,
-        tl_invalidated=telem.tl_invalidated + invalidated,
-        tl_proposals=telem.tl_proposals + proposed_now,
-        tl_tally_sum=telem.tl_tally_sum + tally_at_decision,
-        tl_fast_decisions=telem.tl_fast_decisions + fast_decided,
-        tl_classic_decisions=telem.tl_classic_decisions + fb_decided,
-        tl_conflict_rounds=telem.tl_conflict_rounds + stalled,
-        tl_undecided_hist=telem.tl_undecided_hist
-        + ((bins == bucket[:, None]) & decided[:, None]),
-    )
-    if trace is None:
-        return round_state, decided_out, winner_mask, events, telem, None
+    with profiling.span("planes"):
+        # Device telemetry plane: written here, never read by the round. The
+        # scalars reuse what the round computed (``stalled`` is the conflict
+        # flag: announced and no fast decision).
+        active, invalidated = telemetry_cut_masks(
+            state.report_bits, new_bits, report_bits, state.alive | state.join_pending, cfg.h, cfg.l
+        )
+        tally_at_decision = torch.where(decided, tally.max_count, 0)
+        bins = torch.arange(TELEMETRY_BUCKETS, dtype=torch.int32, device=dev)
+        bucket = undecided_log2_bucket(rounds_undecided, TELEMETRY_BUCKETS)
+        telem = TelemetryLanes(
+            tl_rounds=telem.tl_rounds + 1,
+            tl_alerts=telem.tl_alerts + alerts_emitted,
+            tl_active=telem.tl_active + active,
+            tl_invalidated=telem.tl_invalidated + invalidated,
+            tl_proposals=telem.tl_proposals + proposed_now,
+            tl_tally_sum=telem.tl_tally_sum + tally_at_decision,
+            tl_fast_decisions=telem.tl_fast_decisions + fast_decided,
+            tl_classic_decisions=telem.tl_classic_decisions + fb_decided,
+            tl_conflict_rounds=telem.tl_conflict_rounds + stalled,
+            tl_undecided_hist=telem.tl_undecided_hist
+            + ((bins == bucket[:, None]) & decided[:, None]),
+        )
+        if trace is None:
+            return round_state, decided_out, winner_mask, events, telem, None
 
-    # Round-trace ring: one record into slot cursor % R, as a one-hot select
-    # (no host index). The round and epoch stamps are the values the round
-    # started with; the undecided count is the updated one, as in JAX.
-    slot = trace.tr_cursor % cfg.trace
-    at = (torch.arange(cfg.trace, dtype=torch.int32, device=dev) == slot[:, None])
+        # Round-trace ring: one record into slot cursor % R, as a one-hot select
+        # (no host index). The round and epoch stamps are the values the round
+        # started with; the undecided count is the updated one, as in JAX.
+        slot = trace.tr_cursor % cfg.trace
+        at = (torch.arange(cfg.trace, dtype=torch.int32, device=dev) == slot[:, None])
 
-    def put(lane, value):
-        return torch.where(at, value[:, None], lane)
+        def put(lane, value):
+            return torch.where(at, value[:, None], lane)
 
-    active_count = active.flatten(1).sum(-1, dtype=torch.int32)
-    proposals = proposed_now.sum(-1, dtype=torch.int32)
-    if ctx is not None:
-        counts = ctx.sum(torch.stack([ctx.sum(active_count, _NODES, "trace active"), proposals]),
-                         _COHORT, "trace counts")
-        active_count, proposals = counts[0], counts[1]
-    trace = TraceRing(
-        tr_round=put(trace.tr_round, state.round_idx),
-        tr_epoch=put(trace.tr_epoch, state.config_epoch),
-        tr_active=put(trace.tr_active, active_count),
-        tr_alerts=put(trace.tr_alerts, alerts_emitted),
-        tr_proposals=put(trace.tr_proposals, proposals),
-        tr_tally=put(trace.tr_tally, tally_at_decision),
-        tr_path=put(trace.tr_path, fb_decided.to(torch.int32) * 2 + fast_decided),
-        tr_conflict=put(trace.tr_conflict, stalled.to(torch.int32)),
-        tr_undecided=put(trace.tr_undecided, rounds_undecided.to(torch.int32)),
-        tr_cursor=trace.tr_cursor + 1,
-        tr_wraps=trace.tr_wraps + (slot == cfg.trace - 1),
-    )
-    return round_state, decided_out, winner_mask, events, telem, trace
+        active_count = active.flatten(1).sum(-1, dtype=torch.int32)
+        proposals = proposed_now.sum(-1, dtype=torch.int32)
+        if ctx is not None:
+            counts = ctx.sum(torch.stack([ctx.sum(active_count, _NODES, "trace active"), proposals]),
+                             _COHORT, "trace counts")
+            active_count, proposals = counts[0], counts[1]
+        trace = TraceRing(
+            tr_round=put(trace.tr_round, state.round_idx),
+            tr_epoch=put(trace.tr_epoch, state.config_epoch),
+            tr_active=put(trace.tr_active, active_count),
+            tr_alerts=put(trace.tr_alerts, alerts_emitted),
+            tr_proposals=put(trace.tr_proposals, proposals),
+            tr_tally=put(trace.tr_tally, tally_at_decision),
+            tr_path=put(trace.tr_path, fb_decided.to(torch.int32) * 2 + fast_decided),
+            tr_conflict=put(trace.tr_conflict, stalled.to(torch.int32)),
+            tr_undecided=put(trace.tr_undecided, rounds_undecided.to(torch.int32)),
+            tr_cursor=trace.tr_cursor + 1,
+            tr_wraps=trace.tr_wraps + (slot == cfg.trace - 1),
+        )
+        return round_state, decided_out, winner_mask, events, telem, trace
 
 
 def apply_view_change_impl(cfg: EngineConfig, state: EngineState, winner_mask,
@@ -736,7 +754,7 @@ def engine_step(
         cfg, _one(state), _one(faults), telem=_one(telem), trace=_one(trace), ctx=ctx
     )
     if decided:
-        with _gate(ctx):
+        with _gate(ctx), profiling.span("view_change"):
             round_state = apply_view_change_impl(cfg, round_state, winner_mask, ctx)
     return _only(round_state), _only(events), decided, _only(telem), _only(trace)
 
@@ -759,7 +777,8 @@ def engine_stream_step(
     round_state, decided, winner_mask, events, telem, trace = _compute_round(
         cfg, _one(state), _one(faults), select=True, telem=_one(telem), trace=_one(trace)
     )
-    committed = apply_view_change_impl(cfg, round_state, winner_mask)
+    with profiling.span("view_change"):
+        committed = apply_view_change_impl(cfg, round_state, winner_mask)
     state = select_lanes(decided, committed, round_state)
     return _only(state), _only(events), _only(telem), _only(trace)
 
@@ -788,7 +807,7 @@ def run_to_decision(
             )
         steps += 1
     if decided:
-        with _gate(ctx):
+        with _gate(ctx), profiling.span("view_change"):
             state = apply_view_change_impl(cfg, state, winner, ctx)
     return _only(state), steps, decided, winner[0], _only(telem), _only(trace)
 
@@ -817,7 +836,7 @@ def run_until_membership(
     JAX wave)."""
     state, faults, telem, trace = _one(state), _one(faults), _one(telem), _one(trace)
     edge_masks = _edge_masks(cfg, state, faults, ctx)
-    members = _host.read(state.n_members)[0]  # host-sync-ok: the wave loop's predicate (JAX's while_loop condition)
+    members = _host.read(state.n_members, "membership_predicate")[0]  # host-sync-ok: the wave loop's predicate (JAX's while_loop condition)
     steps, cuts, stalled, sizes = 0, 0, False, []
     while not (
         (members == target and cuts >= min_cuts)
@@ -833,10 +852,10 @@ def run_until_membership(
                 )
             steps += 1
         if decided:
-            with _loop(ctx), _gate(ctx):
+            with _loop(ctx), _gate(ctx), profiling.span("view_change"):
                 state = apply_view_change_impl(cfg, state, winner, ctx)
                 edge_masks = _edge_masks(cfg, state, faults, ctx)
-            members = _host.read(state.n_members)[0]  # host-sync-ok: the wave loop's predicate after a cut
+            members = _host.read(state.n_members, "membership_predicate")[0]  # host-sync-ok: the wave loop's predicate after a cut
             sizes.append(members)
             cuts += 1
         stalled = not decided
@@ -1155,7 +1174,8 @@ class VirtualCluster(DispatchSeam):
         state = self.state
         idx = self._slot_index(slots)
         if check_admissible:
-            bad = np.asarray(_host.read((state.alive | state.join_pending | state.retired)[idx]))
+            bad = np.asarray(_host.read((state.alive | state.join_pending | state.retired)[idx],
+                                        "join_admissibility"))
             self._account_d2h(bad.nbytes)
             if bad.any():
                 raise ValueError(
@@ -1207,7 +1227,8 @@ class VirtualCluster(DispatchSeam):
         on the device)."""
         self.metrics.inc("engine_steps")
         self.metrics.inc("engine_convergence_steps")
-        with self._dispatch(phase):
+        with self._dispatch(phase) as record:
+            record.rounds = 1
             if phase == "stream_enqueue":
                 self.state, events, self.telem, self.trace_ring = engine_stream_step(
                     self.cfg, self.state, self.faults, self.telem, self.trace_ring
@@ -1238,7 +1259,7 @@ class VirtualCluster(DispatchSeam):
         telemetry plane on, then refresh :attr:`activity` and :attr:`trace`
         (:meth:`_refresh_activity`)."""
         with self._dispatch("sync"):
-            checksum = _host.read(sync_checksum(self.state, self.faults))
+            checksum = _host.read(sync_checksum(self.state, self.faults), "sync_checksum")
         self._account_d2h(4)
         self._staged.clear()
         self._refresh_activity()
@@ -1255,13 +1276,14 @@ class VirtualCluster(DispatchSeam):
             digest = telemetry_digest(_one(self.telem))[0]
             self._account_d2h(digest.nbytes)
             self._activity = engine_telemetry.activity_summary(
-                _host.read(digest), self.cfg.n, self.cfg.c
+                _host.read(digest, "telemetry_digest"), self.cfg.n, self.cfg.c
             )
         if self.trace_ring is not None:
             # telemetry-fetch-ok: sync barrier — same blocking round trip.
             digest = trace_digest(_one(self.trace_ring))[0]
             self._account_d2h(digest.nbytes)
-            self._trace = engine_telemetry.trace_summary(_host.read(digest), self.cfg.trace)
+            self._trace = engine_telemetry.trace_summary(_host.read(digest, "trace_digest"),
+                                                         self.cfg.trace)
 
     @property
     def activity(self) -> Optional[dict]:
@@ -1289,11 +1311,12 @@ class VirtualCluster(DispatchSeam):
     def run_to_decision(self, max_steps: int = 64) -> Tuple[int, bool, torch.Tensor, int]:
         """Rounds until a view change commits; returns (rounds, decided,
         winner_mask, n_members)."""
-        with self._dispatch("run_to_decision"):
+        with self._dispatch("run_to_decision") as record:
             self.state, steps, decided, winner, self.telem, self.trace_ring = run_to_decision(
                 self.cfg, self.state, self.faults, max_steps, self.telem, self.trace_ring
             )
-            members = _host.read(self.state.n_members)
+            members = _host.read(self.state.n_members, "decision_observation")
+            record.rounds = steps
         # The JAX driver's packed observation: 4 bytes, 8 past 2**22 slots.
         self._account_d2h(4 if self.cfg.n < (1 << 22) else 8)
         self._staged.clear()
@@ -1309,13 +1332,14 @@ class VirtualCluster(DispatchSeam):
         reaches ``target``; returns (rounds, cuts, resolved, sizes)."""
         if not 0 <= target <= self.cfg.n:
             raise ValueError(f"target must be in [0, {self.cfg.n}]: {target}")
-        with self._dispatch("run_until_membership"):
+        with self._dispatch("run_until_membership") as record:
             self.state, steps, cuts, resolved, sizes, self.telem, self.trace_ring = (
                 run_until_membership(
                     self.cfg, self.state, self.faults, target, max_steps, max_cuts, min_cuts,
                     self.telem, self.trace_ring,
                 )
             )
+            record.rounds = steps
         # The JAX driver's observation: (steps, cuts, resolved, sizes[max_cuts]) int32.
         self._account_d2h(4 * (3 + max_cuts))
         self._staged.clear()
@@ -1341,23 +1365,24 @@ class VirtualCluster(DispatchSeam):
     @property
     def membership_size(self) -> int:
         self._account_d2h(4)
-        return _host.read(self.state.n_members)
+        return _host.read(self.state.n_members, "observer")
 
     @property
     def alive_mask(self) -> np.ndarray:
-        mask = np.array(_host.read(self.state.alive), dtype=bool)
+        mask = np.array(_host.read(self.state.alive, "observer"), dtype=bool)
         self._account_d2h(mask.nbytes)
         return mask
 
     @property
     def config_epoch(self) -> int:
         self._account_d2h(4)
-        return _host.read(self.state.config_epoch)
+        return _host.read(self.state.config_epoch, "observer")
 
     @property
     def config_id(self) -> int:
         self._account_d2h(8)
-        hi, lo = _host.read(_u32.widen(torch.stack([self.state.config_hi, self.state.config_lo])))
+        hi, lo = _host.read(
+            _u32.widen(torch.stack([self.state.config_hi, self.state.config_lo])), "observer")
         return (hi << 32) | lo
 
     # -- observability (utils/exposition.py schema) ---------------------
@@ -1369,7 +1394,8 @@ class VirtualCluster(DispatchSeam):
         device reduction, read once (4 bytes, as the JAX driver charges)."""
         pending = _host.read(
             (self.state.alive & self.faults.crashed).sum(dtype=torch.int32)
-            + self.state.join_pending.sum(dtype=torch.int32)
+            + self.state.join_pending.sum(dtype=torch.int32),
+            "health",
         )
         self._account_d2h(4)
         return NodeHealth.PROPOSING if pending else NodeHealth.STABLE

@@ -143,7 +143,7 @@ def cohort_watermark_pass(
     gate = None if select else torch.any(flux & seen_down[..., None])
     if gate is not None and ctx is not None:
         gate = ctx.max(gate, ("cohort", "nodes"), "invalidation gate")
-    if select or _host.read(gate):
+    if select or _host.read(gate, "invalidation_gate"):
         with contextlib.nullcontext() if ctx is None else ctx.gate():
             in_union = (stable & ~released) | flux
             if ctx is not None:

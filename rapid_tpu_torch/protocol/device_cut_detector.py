@@ -185,7 +185,7 @@ class DeviceCutDetector:
         self._seen_down = self._seen_down or has_down
         self.batches += 1
         # The mask is empty exactly when the pass does not propose.
-        hits = _host.read(torch.nonzero(result.proposal_mask).flatten())
+        hits = _host.read(torch.nonzero(result.proposal_mask).flatten(), "detector_proposal")
         self._keep.clear()  # the read waited for the stream to pass the upload
         if not hits:
             return set()

@@ -138,7 +138,7 @@ class DeviceVoteTally:
         self.tallies += 1
         decided, hi, lo = _host.read(torch.stack((
             result.decided.to(torch.int64), _u32.widen(result.winner_hi), _u32.widen(result.winner_lo),
-        )))
+        )), "vote_tally")
         self._keep.clear()  # the read waited for the stream to pass the upload
         if not decided:
             return None

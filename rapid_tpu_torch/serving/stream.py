@@ -650,7 +650,7 @@ class StreamDriver:
                 serving[list(quarantined)] = False
                 self.target._account_h2d(serving)
                 epoch = torch.where(torch.from_numpy(serving).to(epoch.device), epoch, 0)  # upload-ok: at the fetch boundary, the read below waits anyway
-            total = int(_host.read(epoch.sum()))  # host-sync-ok: fetch boundary
+            total = int(_host.read(epoch.sum(), "stream_fetch"))  # host-sync-ok: fetch boundary
         self.target._account_d2h(4)
         return total
 

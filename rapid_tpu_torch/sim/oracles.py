@@ -287,7 +287,7 @@ def inject_engine_event(vc, event) -> int:
     if kind in ("false_alert", "alert_storm"):
         subject = int(args["subject"])
         rings = [int(r) for r in args["rings"]]
-        probe = np.array(_host.read(vc.faults.probe_fail), dtype=bool)
+        probe = np.array(_host.read(vc.faults.probe_fail, "oracle_probe"), dtype=bool)
         vc._account_d2h(probe.nbytes)
         probe[subject, rings] = True
         vc.set_flaky_edges(probe)

@@ -464,7 +464,7 @@ def run_fleet(
             events = fleet.step()
             decided_rounds.append(events.decided)
         soak_cuts = torch.stack(decided_rounds).to(torch.int32).sum(0)
-        result.soak_cuts = np.asarray(_host.read(soak_cuts), dtype=np.int32)
+        result.soak_cuts = np.asarray(_host.read(soak_cuts, "chaos_soak"), dtype=np.int32)
         fleet._account_d2h(result.soak_cuts.nbytes)
         result.soak_rounds = soak_rounds
         result.dispatches += soak_rounds

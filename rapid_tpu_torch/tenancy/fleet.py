@@ -84,10 +84,13 @@ from rapid_tpu_torch.parallel.mesh import (
     match_partition_rules,
     wrap_tree,
 )
-from rapid_tpu_torch.utils import engine_telemetry, exposition
+from rapid_tpu_torch.utils import engine_telemetry, exposition, profiling
 from rapid_tpu_torch.utils.dispatch import DispatchSeam
 from rapid_tpu_torch.utils.health import NodeHealth
 from rapid_tpu_torch.utils.metrics import Metrics
+
+# The span of the lockstep loops' per-tenant select (``profiling.span``).
+profiling.register("fleet_select")
 
 #: The EngineConfig fields that vary per tenant, as :class:`TenantKnobs`
 #: lanes. Every other field must be identical across a fleet's tenants, so
@@ -155,7 +158,7 @@ def fleet_step(
     round_state, decided, winner, events, telem, trace = _compute_round(
         tcfg, state, faults, select=True, telem=telem, trace=trace, ctx=ctx
     )
-    with _gate(ctx):
+    with _gate(ctx), profiling.span("view_change"):
         committed = apply_view_change_impl(tcfg, round_state, winner, ctx)
     return select_lanes(decided, committed, round_state), events, telem, trace
 
@@ -184,18 +187,20 @@ def fleet_run_to_decision(
     winner = torch.zeros((t, n), dtype=torch.bool, device=dev)
     while True:
         running = ~decided & (steps < max_steps)
-        if not _host.read(running.any()):  # host-sync-ok: the decision loop's predicate (JAX's while_loop condition)
+        if not _host.read(running.any(), "fleet_decision_predicate"):  # host-sync-ok: the decision loop's predicate (JAX's while_loop condition)
             break
         round_state, now, won, _, round_telem, round_trace = _compute_round(
             tcfg, state, faults, edge_masks, select=True, telem=telem, trace=trace
         )
-        state = select_lanes(running, round_state, state)
-        telem = select_lanes(running, round_telem, telem)
-        trace = select_lanes(running, round_trace, trace)
-        steps = steps + running.to(torch.int32)
-        decided = torch.where(running, now, decided)
-        winner = torch.where(running[:, None], won, winner)
-    committed = apply_view_change_impl(tcfg, state, winner)
+        with profiling.span("fleet_select"):
+            state = select_lanes(running, round_state, state)
+            telem = select_lanes(running, round_telem, telem)
+            trace = select_lanes(running, round_trace, trace)
+            steps = steps + running.to(torch.int32)
+            decided = torch.where(running, now, decided)
+            winner = torch.where(running[:, None], won, winner)
+    with profiling.span("view_change"):
+        committed = apply_view_change_impl(tcfg, state, winner)
     return select_lanes(decided, committed, state), steps, decided, winner, telem, trace
 
 
@@ -242,20 +247,21 @@ def fleet_wave(
             round_state, decided, winner, _, round_telem, round_trace = _compute_round(
                 tcfg, state, faults, select=True, telem=telem, trace=trace, ctx=ctx
             )
-            with _gate(ctx):
+            with _gate(ctx), profiling.span("view_change"):
                 committed = apply_view_change_impl(tcfg, round_state, winner, ctx)
-        commit = active & decided
-        state = select_lanes(commit, committed, select_lanes(active, round_state, state))
-        telem = select_lanes(active, round_telem, telem)
-        trace = select_lanes(active, round_trace, trace)
-        steps = steps + active.to(torch.int32)
-        # sizes[cuts] = members where a cut committed; a slot past max_cuts
-        # matches no column, so that write is dropped, as JAX drops it.
-        slot = (slots == cuts[:, None]) & commit[:, None]
-        sizes = torch.where(slot, state.n_members[:, None], sizes)
-        cuts = cuts + commit.to(torch.int32)
-        resolved = (state.n_members == target) & (cuts >= min_cuts)
-        done = done | (commit & resolved) | (cuts >= max_cuts)
+        with profiling.span("fleet_select"):
+            commit = active & decided
+            state = select_lanes(commit, committed, select_lanes(active, round_state, state))
+            telem = select_lanes(active, round_telem, telem)
+            trace = select_lanes(active, round_trace, trace)
+            steps = steps + active.to(torch.int32)
+            # sizes[cuts] = members where a cut committed; a slot past max_cuts
+            # matches no column, so that write is dropped, as JAX drops it.
+            slot = (slots == cuts[:, None]) & commit[:, None]
+            sizes = torch.where(slot, state.n_members[:, None], sizes)
+            cuts = cuts + commit.to(torch.int32)
+            resolved = (state.n_members == target) & (cuts >= min_cuts)
+            done = done | (commit & resolved) | (cuts >= max_cuts)
     resolved = (state.n_members == target) & (cuts >= min_cuts)
     return state, steps, cuts, resolved, sizes, telem, trace
 
@@ -513,10 +519,12 @@ class TenantFleet(DispatchSeam):
 
     def _step(self, phase: str) -> StepEvents:
         self.metrics.inc("engine_tenant_rounds", self.b)
-        with self._dispatch(phase):
+        with self._dispatch(phase) as record:
             self.state, events, self.telem, self.trace_ring = fleet_step(
                 self.cfg, self.state, self.faults, self.knobs, self.telem, self.trace_ring
             )
+            record.rounds = 1
+            record.tenant_rounds_active = record.tenant_rounds_computed = self.b
         return events
 
     def stream_crash(self, pairs) -> None:
@@ -543,15 +551,20 @@ class TenantFleet(DispatchSeam):
         """Every tenant runs to its own first view change; returns
         ``(rounds[t], decided[t], winner[t, n] on the device, members[t])``
         with one packed read of the observations."""
-        with self._dispatch("fleet_decision"):
+        with self._dispatch("fleet_decision") as record:
             self.state, steps, decided, winner, self.telem, self.trace_ring = fleet_run_to_decision(
                 self.cfg, self.state, self.faults, self.knobs, max_steps, self.telem,
                 self.trace_ring,
             )
             obs = np.asarray(
-                _host.read(torch.stack([steps, decided.to(torch.int32), self.state.n_members])),
+                _host.read(torch.stack([steps, decided.to(torch.int32), self.state.n_members]),
+                           "fleet_decision_observation"),
                 dtype=np.int32,
             )
+            # The loop runs until its slowest tenant stops, every tenant each time.
+            record.rounds = int(obs[0].max(initial=0))
+            record.tenant_rounds_active = int(obs[0].sum())
+            record.tenant_rounds_computed = self.b * record.rounds
         self._account_d2h(obs.nbytes)
         self._staged.clear()
         rounds, was_decided = obs[0], obs[1].astype(bool)
@@ -583,16 +596,21 @@ class TenantFleet(DispatchSeam):
         if bad.size and (bad.min() < 0 or bad.max() > self.cfg.n):
             raise ValueError(f"targets must be in [0, {self.cfg.n}]: {targets.tolist()}")
         self._account_h2d(targets, min_cuts)
-        with self._dispatch("fleet_wave"):
+        with self._dispatch("fleet_wave") as record:
             self.state, steps, cuts, resolved, sizes, self.telem, self.trace_ring = fleet_wave(
                 self.cfg, self.state, self.faults, self.knobs,
                 torch.from_numpy(targets).to(self.device), int(max_steps), int(max_cuts),
                 torch.from_numpy(min_cuts).to(self.device), self.telem, self.trace_ring,
             )
             obs = np.asarray(
-                _host.read(torch.cat([steps, cuts, resolved.to(torch.int32), sizes.reshape(-1)])),
+                _host.read(torch.cat([steps, cuts, resolved.to(torch.int32), sizes.reshape(-1)]),
+                           "fleet_wave_observation"),
                 dtype=np.int32,
             )
+            # Lockstep: every one of the max_steps rounds is computed for every tenant.
+            record.rounds = int(max_steps)
+            record.tenant_rounds_active = int(obs[: self.b].sum())
+            record.tenant_rounds_computed = self.b * int(max_steps)
         self._account_d2h(obs.nbytes)
         self._staged.clear()
         b = self.b
@@ -618,7 +636,7 @@ class TenantFleet(DispatchSeam):
             # paying a blocking device round trip here.
             digest = fleet_telemetry_digest(self.telem)
             self._account_d2h(digest.nbytes)
-            digests = _host.read(digest)
+            digests = _host.read(digest, "telemetry_digest")
             self._activity = [
                 engine_telemetry.activity_summary(d, self.cfg.n, self.cfg.c) for d in digests
             ]
@@ -627,7 +645,7 @@ class TenantFleet(DispatchSeam):
             # [t, 2 + 9R] digest fetch decodes every tenant's ring.
             digest = fleet_trace_digest(self.trace_ring)
             self._account_d2h(digest.nbytes)
-            digests = _host.read(digest)
+            digests = _host.read(digest, "trace_digest")
             self._trace = [engine_telemetry.trace_summary(d, self.cfg.trace) for d in digests]
 
     @property
@@ -729,7 +747,7 @@ class TenantFleet(DispatchSeam):
         return map_lanes(lambda x: x[i], self.state)
 
     def membership_sizes(self) -> np.ndarray:
-        out = np.asarray(_host.read(self.state.n_members), dtype=np.int32)
+        out = np.asarray(_host.read(self.state.n_members, "observer"), dtype=np.int32)
         self._account_d2h(out.nbytes)
         return out
 
@@ -750,7 +768,8 @@ class TenantFleet(DispatchSeam):
         every tenant, read once: 4 bytes)."""
         pending = _host.read(
             (self.state.alive & self.faults.crashed).sum(dtype=torch.int32)
-            + self.state.join_pending.sum(dtype=torch.int32)
+            + self.state.join_pending.sum(dtype=torch.int32),
+            "health",
         )
         self._account_d2h(4)
         return NodeHealth.PROPOSING if pending else NodeHealth.STABLE

@@ -820,9 +820,9 @@ def trace_call(spec: Dict[str, Any], tenants: int = 0, record: bool = False) -> 
     tracer.seed(pairs)
     real_read, real_delivery = _host.read, virtual_cluster.delivery_new_bits
 
-    def read(t):
+    def read(t, site):
         tracer.on_read(t)
-        return real_read(t)
+        return real_read(t, site)
 
     read.count = real_read.count
     _host.read = read

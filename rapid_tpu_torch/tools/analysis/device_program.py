@@ -279,7 +279,7 @@ def registry(device, n: int = AUDIT_N, k: int = AUDIT_K, churn: bool = True,
         return build
 
     def sync_call(cfg, t):
-        return _host.read(sync_checksum(t["state"], t["faults"]))
+        return _host.read(sync_checksum(t["state"], t["faults"]), "sync_checksum")
 
     return {
         "step": single({}, lambda cfg, t: engine_step(cfg, t["state"], t["faults"]), step_out),
@@ -345,12 +345,12 @@ def counting():
     real_delivery = virtual_cluster.delivery_new_bits
     reads, uploads = real_read.count, _host.upload.count
 
-    def read(t):
+    def read(t, site):
         # _host.read counts through its module-level name, which is this
         # wrapper while it is installed: it carries the count meanwhile.
         local = t.to_local() if hasattr(t, "to_local") else t
         counts["d2h_bytes"] += local.numel() * local.element_size()
-        return real_read(t)
+        return real_read(t, site)
 
     def delivery(*args, **kwargs):
         counts["delivery_calls"] += 1

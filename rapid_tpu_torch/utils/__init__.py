@@ -27,7 +27,8 @@ _EXPORTS = {
     "compiled_memory_analysis": "engine_telemetry",
     "device_memory_snapshot": "engine_telemetry",
     "trace_recorder_snapshot": "engine_telemetry",
-    "annotate": "profiling",
+    "span": "profiling",
+    "span_table": "profiling",
     "trace": "profiling",
 }
 

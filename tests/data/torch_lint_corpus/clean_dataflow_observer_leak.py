@@ -41,7 +41,7 @@ def _engine_branch():
 
     def call():
         cuts = state.cuts
-        if _host.read(state.alive.any()):
+        if _host.read(state.alive.any(), "branch_point"):
             cuts = cuts + 1
         return EngineState(state.alive, cuts + 0), TelemetryLanes(telem.tl_enq + 1)
 

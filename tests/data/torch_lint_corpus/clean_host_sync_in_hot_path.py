@@ -12,5 +12,5 @@ def round_impl(state, faults):
     alive = state.alive.sum()
     live = torch.where(faults.crashed, 0, state.alive.to(torch.int32))
     slots = np.arange(4).tolist()
-    decided = _host.read(state.decided)  # host-sync-ok: the round's one branch point
+    decided = _host.read(state.decided, "branch_point")  # host-sync-ok: the round's one branch point
     return alive, live, slots, decided

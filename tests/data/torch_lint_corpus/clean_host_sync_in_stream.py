@@ -12,6 +12,6 @@ class Driver:
 
     def drain(self, poisoned):
         state = self.target.state
-        total = _host.read(state.config_epoch.sum())  # host-sync-ok: fetch boundary
+        total = _host.read(state.config_epoch.sum(), "stream_fetch")  # host-sync-ok: fetch boundary
         fresh = [int(t) for t in np.nonzero(poisoned)[0].tolist()]
         return total, fresh

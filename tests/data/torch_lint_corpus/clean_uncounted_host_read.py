@@ -7,7 +7,7 @@ from rapid_tpu_torch import _host
 
 
 def members(state, tree, np_of):
-    count = _host.read(state.n_members)
+    count = _host.read(state.n_members, "membership_predicate")
     slots = np.arange(8).tolist()
     host = np_of(tree)
     copy = map(np_of, tree)

@@ -50,7 +50,7 @@ def _observer_branch():
 
     def call():
         cuts = state.cuts
-        if _host.read(telem.tl_enq.any()):  # the engine branches on the observer
+        if _host.read(telem.tl_enq.any(), "branch_point"):  # the engine branches on the observer
             cuts = cuts + 1
         return EngineState(state.alive, cuts + 0), TelemetryLanes(telem.tl_enq + 1)
 
@@ -73,7 +73,7 @@ def _gated_dense_round():
 
     def call():
         cuts = state.cuts
-        if _host.read(state.alive.any()):
+        if _host.read(state.alive.any(), "branch_point"):
             cuts = torch.where(state.alive, torch.cumsum(state.cuts, 0, dtype=torch.int32), cuts)
         return EngineState(state.alive, cuts)
 

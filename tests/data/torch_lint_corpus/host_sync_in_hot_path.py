@@ -12,8 +12,8 @@ def round_impl(state, faults):
     host = faults.crashed.cpu()  # expect: host-sync-in-hot-path
     torch.cuda.synchronize()  # expect: host-sync-in-hot-path
     total = int(torch.sum(state.alive))  # expect: host-sync-in-hot-path
-    members = _host.read(state.n_members)  # expect: host-sync-in-hot-path
-    decided = _host.read(state.decided)  # host-sync-ok: the round's one branch point
+    members = _host.read(state.n_members, "membership_predicate")  # expect: host-sync-in-hot-path
+    decided = _host.read(state.decided, "branch_point")  # host-sync-ok: the round's one branch point
     return alive, mask, host, total, members, decided
 
 

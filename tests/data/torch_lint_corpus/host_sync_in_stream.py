@@ -12,7 +12,7 @@ class Driver:
 
     def drain(self):
         state = self.target.state
-        members = _host.read(state.n_members)  # expect: host-sync-in-stream
+        members = _host.read(state.n_members, "membership_predicate")  # expect: host-sync-in-stream
         snapshot = state.alive.cpu().numpy()  # expect: host-sync-in-stream
         if torch.any(state.alive):  # expect: host-sync-in-stream
             pass

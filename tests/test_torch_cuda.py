@@ -475,14 +475,13 @@ def test_profiler_trace_sees_the_delivery_kernel(card, tmp_path):
         vc, _ = churn_cluster(4096, 102, 102, 40, 7, card)
         if profiled:
             with profiling.trace(str(tmp_path)):
-                with profiling.annotate("churn"):
-                    results.append(resolve(vc, 4096))
+                results.append(resolve(vc, 4096))
         else:
             results.append(resolve(vc, 4096))
     assert results[0] == results[1]
     with open(profiling.trace_file(str(tmp_path))) as f:
         events = json.load(f)["traceEvents"]
-    assert any(e.get("name") == "churn" for e in events)
+    assert any(e.get("name") == profiling.PREFIX + "run_until_membership" for e in events)
     assert any(e.get("cat") == "kernel" and "delivery_new_bits_kernel" in e.get("name", "")
                for e in events)
 

@@ -188,7 +188,7 @@ def test_a_host_branch_is_a_control_edge():
 
     def call(s):
         cuts = s.cuts
-        if _host.read(s.alive.any()):
+        if _host.read(s.alive.any(), "branch_point"):
             cuts = cuts + 1
         return EngineState(s.alive, cuts, s.epoch + 0)
 

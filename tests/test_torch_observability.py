@@ -527,10 +527,10 @@ def test_trace_records_the_annotated_span_and_rejects_nesting(tmp_path):
         with pytest.raises(RuntimeError, match="does not nest"):
             with profiling.trace(str(tmp_path / "inner")):
                 pass  # pragma: no cover — must not be reached
-        with profiling.annotate("churn"):
+        with profiling.span("round"):
             torch.ones(8).cumsum(0)
     events = json.loads(Path(profiling.trace_file(str(tmp_path / "outer"))).read_text())
-    assert any(e.get("name") == "churn" for e in events["traceEvents"])
+    assert any(e.get("name") == "rapid.round" for e in events["traceEvents"])
     assert not (tmp_path / "inner").exists()
 
 
@@ -552,7 +552,7 @@ def test_noop_when_profiler_unavailable(tmp_path, monkeypatch, caplog):
             ran.append(True)
     assert ran
     assert any("unavailable" in r.message for r in caplog.records)
-    with profiling.annotate("phase"):
+    with profiling.span("round"):
         ran.append(True)
     assert len(ran) == 2
 
