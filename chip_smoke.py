@@ -794,6 +794,7 @@ def profile_run(dev, run, lead_s=PROFILE_LEAD_S):
         "device_busy_share": device_ms / wall_ms,
         "delivery_device_ms": delivery_ms,
         "delivery_share": delivery_ms / device_ms if device_ms else None,
+        "delivery_kernels": sum(e.count for e in kernels if "delivery_new_bits_kernel" in e.key),
         "device_kernels": sum(e.count for e in kernels),
         "top": [[e.key[:80], e.count, e.self_device_time_total / 1e3] for e in top],
         "marker_kernels_recorded": leads,
@@ -962,6 +963,7 @@ def phase_fleet_path(dev, captured=None, built=None):
     from rapid_tpu_torch import _host
     from rapid_tpu_torch.ops.kernels import delivery_new_bits
     from rapid_tpu_torch.tenancy import TenantFleet
+    from rapid_tpu_torch.utils import dispatch
 
     b, n, n_extra = FLEET["tenants"], FLEET["n"], FLEET["n_extra"]
     wave = dict(max_steps=FLEET["max_steps"], max_cuts=4, min_cuts=1)
@@ -1000,8 +1002,15 @@ def phase_fleet_path(dev, captured=None, built=None):
         launches = delivery_new_bits.launches - launches0
         reads = _host.read.count - reads0
         check(resolved.all(), f"fleet tenants unresolved: {np.nonzero(~resolved)[0].tolist()}")
-        check(launches == wave["max_steps"],
-              f"{launches} kernel launches in a {wave['max_steps']}-round wave")
+        # A wrapper on the delivery seam (the captured wave) runs eagerly.
+        wrapped = captured is not None and (side, rep) == order[0]
+        check(dispatch.records()[-1].graphed != wrapped,
+              f"the {side} wave ran {'eagerly' if wrapped else 'from a graph'}")
+        # A new fleet's first wave captures its graph after one scratch round.
+        captures = len(fleet._wave_graphs._chunks)
+        check(launches == wave["max_steps"] + captures,
+              f"{launches} kernel launches in a {wave['max_steps']}-round wave "
+              f"with {captures} captures")
         check(reads == 1, f"the wave made {reads} host reads")
         check((fleet.membership_sizes() == np.asarray(targets)).all(), "a tenant missed its target")
         samples[side].append(dict(
@@ -1035,6 +1044,11 @@ def phase_fleet_path(dev, captured=None, built=None):
             dev, lambda: fleet.run_until_membership(targets, **wave)
         )
         check(resolved.all(), "profiled fleet wave did not resolve")
+        # The device ran every delivery launch counted: the scratch round
+        # and the replayed ones.
+        check(prof["delivery_kernels"] == wave["max_steps"] + 1,
+              f"the profiler saw {prof['delivery_kernels']} delivery kernels in a new fleet's "
+              f"{wave['max_steps']}-round wave")
         prof["kernels_per_round"] = prof["device_kernels"] / wave["max_steps"]
         timed = [s for s in samples[side] if not s["warmup"]]
         sides[side] = {
@@ -1453,7 +1467,10 @@ def phase_compact_fleet(dev, built):
         ms = (time.perf_counter() - start) * 1e3
         launches, reads = delivery_new_bits.launches - launches0, _host.read.count - reads0
         check(result[2].all(), f"{side} fleet: tenants unresolved")
-        check(launches == wave["max_steps"] and reads == 1, f"{side} wave: {launches} launches, {reads} reads")
+        # A new fleet's first wave captures its graph after one scratch round.
+        captures = len(fleet._wave_graphs._chunks)
+        check(launches == wave["max_steps"] + captures and reads == 1,
+              f"{side} wave: {launches} launches ({captures} captures), {reads} reads")
         check(bool(tenant_health(fleet.cfg, fleet.state).all()), f"{side} fleet: a tenant is unhealthy")
         nbytes[side] = (pytree_nbytes(fleet.state) + pytree_nbytes(fleet.faults)) / (fleet.b * fleet.cfg.n)
         samples[side].append(dict(warmup=rep is None, ms=ms, view_changes=int(result[1].sum()),
@@ -2036,6 +2053,7 @@ def phase_chaos(dev, captured):
     from rapid_tpu_torch import _host
     from rapid_tpu_torch.ops.kernels import delivery_new_bits
     from rapid_tpu_torch.tenancy import TenantFleet, chaos
+    from rapid_tpu_torch.utils import dispatch
 
     b, max_steps = CHAOS["tenants"], CHAOS["max_steps"]
     seconds, mark = {}, [time.perf_counter()]
@@ -2051,6 +2069,7 @@ def phase_chaos(dev, captured):
     runs = []
     torch.cuda.synchronize(dev)
     delivery_new_bits.launches = 0
+    dispatch.clear_records()
     reads0 = _host.read.count
     start = time.perf_counter()
     with keeping_runs(runs), capturing(captured):
@@ -2066,8 +2085,14 @@ def phase_chaos(dev, captured):
     check(len(runs) == 1, f"fuzz_fleet made {len(runs)} fleet runs")
     timed = runs[0]
     n_groups = max(len(s.groups) for s in timed.scenarios)
-    check(launches == n_groups * max_steps + timed.soak_rounds,
-          f"{launches} delivery launches for {n_groups} waves and {timed.soak_rounds} soak rounds")
+    # Each phase group's wave is a new fleet's first: where it replays, it
+    # captures its graph after one scratch round.
+    waves = [r for r in dispatch.records() if r.entry == "fleet_wave"]
+    graphed = sum(r.graphed for r in waves)
+    check(len(waves) == n_groups, f"{len(waves)} fleet waves for {n_groups} phase groups")
+    check(launches == n_groups * max_steps + graphed + timed.soak_rounds,
+          f"{launches} delivery launches for {n_groups} waves ({graphed} graphed) and "
+          f"{timed.soak_rounds} soak rounds")
 
     # The same specs through the port on the CPU: equal records.
     specs = chaos.fleet_specs(b, CHAOS["timed_seed"])
@@ -2275,7 +2300,7 @@ def phase_observability(dev):
     from rapid_tpu_torch.ops.kernels import delivery_new_bits
     from rapid_tpu_torch.serving import PoissonChurn, Supervisor
     from rapid_tpu_torch.tenancy import TenantFleet
-    from rapid_tpu_torch.utils import engine_telemetry, exposition, profiling
+    from rapid_tpu_torch.utils import dispatch, engine_telemetry, exposition, profiling
 
     launches, report = {}, {}
     n, n_join = HEADLINE["n"], HEADLINE["n_join"]
@@ -2341,6 +2366,7 @@ def phase_observability(dev):
     _, _, resolved, _ = fleet.run_until_membership(targets, **wave)
     launches["observability_fleet_wave"] = delivery_new_bits.launches
     check(resolved.all(), "the scraped fleet wave did not resolve")
+    check(dispatch.records()[-1].graphed, "the scraped card wave ran eagerly")
     fleet.sync()
     fsnap, ftext, fleet_report = scrape(fleet)
     missing = [t for t in range(b) if f'tenant="{t}"' not in ftext]

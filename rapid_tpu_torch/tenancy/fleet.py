@@ -23,6 +23,14 @@ What vmap does to the single cluster's control flow, the port writes out:
   and finished or quarantined tenants frozen through the ``done`` lane. The
   loop's only predicate is a counter, so it makes no host read: the results
   come back in one packed read after it;
+- on a card, :meth:`TenantFleet.run_until_membership` replays the wave's
+  iterations from captured CUDA graphs of :data:`WAVE_GRAPH_CHUNK`
+  iterations each (:class:`WaveGraphs`): the same ops on static copies of
+  the wave's inputs, lane for lane the eager wave's results, without the
+  host issuing each of the round's ~850 operations. It runs eagerly where a
+  replay could not be the eager wave: off a card, on a mesh, inside the
+  port's own ``profiling.trace()`` (whose spans are Python), or with a
+  wrapper on a seam of the round;
 - :func:`fleet_run_to_decision` is the batched while: tenants that decided
   stop and keep their state, with one read of "any tenant still running"
   per round (the single-device driver).
@@ -49,6 +57,7 @@ import numpy as np
 import torch
 
 from rapid_tpu_torch import _host, _u32
+from rapid_tpu_torch.models import virtual_cluster
 from rapid_tpu_torch.models.state import (
     ROUND_ENVELOPE,
     EngineConfig,
@@ -73,6 +82,7 @@ from rapid_tpu_torch.models.virtual_cluster import (
 )
 from rapid_tpu_torch.models.virtual_cluster import telemetry_digest as fleet_telemetry_digest
 from rapid_tpu_torch.models.virtual_cluster import trace_digest as fleet_trace_digest
+from rapid_tpu_torch.ops import kernels
 from rapid_tpu_torch.parallel.collectives import TENANT_AXIS
 from rapid_tpu_torch.parallel.mesh import (
     _context,
@@ -204,6 +214,84 @@ def fleet_run_to_decision(
     return select_lanes(decided, committed, state), steps, decided, winner, telem, trace
 
 
+class _WaveInputs(NamedTuple):
+    """What every lockstep iteration of one wave reads and none changes."""
+
+    tcfg: EngineConfig  # the fleet's config with its knob lanes woven in
+    faults: FaultInputs
+    target: torch.Tensor  # [t] int32
+    min_cuts: torch.Tensor  # [t] int32
+    max_steps: int
+    slots: torch.Tensor  # [max_cuts] int32: 0, 1, ...
+
+
+class _WaveCarry(NamedTuple):
+    """What one lockstep iteration of :func:`fleet_wave` hands the next."""
+
+    state: EngineState
+    telem: Optional[TelemetryLanes]
+    trace: Optional[TraceRing]
+    steps: torch.Tensor  # [t] int32: rounds each tenant stepped
+    cuts: torch.Tensor  # [t] int32: view changes each tenant committed
+    sizes: torch.Tensor  # [t, max_cuts] int32: members after each cut, -1 beyond
+    done: torch.Tensor  # [t] bool: frozen (resolved, out of cuts, or quarantined)
+
+
+def _wave_inputs(cfg, faults, knobs, target, max_steps, max_cuts, min_cuts) -> _WaveInputs:
+    slots = torch.arange(max_cuts, dtype=torch.int32, device=target.device)
+    return _WaveInputs(_tenant_cfg(cfg, knobs), faults, target, min_cuts, max_steps, slots)
+
+
+def _wave_start(state, telem, trace, inputs: _WaveInputs) -> _WaveCarry:
+    t = state.alive.shape[0]
+    dev = state.alive.device
+    # The equal-churn trap guard, as the nested loop's entry condition:
+    # already-at-target resolves vacuously only when no cuts are demanded.
+    done = (state.n_members == inputs.target) & (inputs.min_cuts <= 0)
+    return _WaveCarry(
+        state, telem, trace,
+        torch.zeros((t,), dtype=torch.int32, device=dev),
+        torch.zeros((t,), dtype=torch.int32, device=dev),
+        torch.full((t, inputs.slots.shape[0]), -1, dtype=torch.int32, device=dev),
+        done,
+    )
+
+
+def _wave_iteration(inputs: _WaveInputs, carry: _WaveCarry, ctx=None) -> _WaveCarry:
+    """One lockstep iteration: a round for every tenant, the view change
+    select-applied, and the tenants that stepped, committed or finished
+    accounted; frozen tenants keep their lanes."""
+    tcfg, faults, target, min_cuts, max_steps, slots = inputs
+    state, telem, trace, steps, cuts, sizes, done = carry
+    active = ~done & (steps < max_steps)
+    with _loop(ctx):
+        round_state, decided, winner, _, round_telem, round_trace = _compute_round(
+            tcfg, state, faults, select=True, telem=telem, trace=trace, ctx=ctx
+        )
+        with _gate(ctx), profiling.span("view_change"):
+            committed = apply_view_change_impl(tcfg, round_state, winner, ctx)
+    with profiling.span("fleet_select"):
+        commit = active & decided
+        state = select_lanes(commit, committed, select_lanes(active, round_state, state))
+        telem = select_lanes(active, round_telem, telem)
+        trace = select_lanes(active, round_trace, trace)
+        steps = steps + active.to(torch.int32)
+        # sizes[cuts] = members where a cut committed; a slot past max_cuts
+        # matches no column, so that write is dropped, as JAX drops it.
+        slot = (slots == cuts[:, None]) & commit[:, None]
+        sizes = torch.where(slot, state.n_members[:, None], sizes)
+        cuts = cuts + commit.to(torch.int32)
+        resolved = (state.n_members == target) & (cuts >= min_cuts)
+        done = done | (commit & resolved) | (cuts >= slots.shape[0])
+    return _WaveCarry(state, telem, trace, steps, cuts, sizes, done)
+
+
+def _wave_results(inputs: _WaveInputs, carry: _WaveCarry):
+    resolved = (carry.state.n_members == inputs.target) & (carry.cuts >= inputs.min_cuts)
+    return (carry.state, carry.steps, carry.cuts, resolved, carry.sizes, carry.telem,
+            carry.trace)
+
+
 def fleet_wave(
     cfg: EngineConfig,
     state: EngineState,
@@ -230,40 +318,159 @@ def fleet_wave(
     Returns ``(state, steps[t], cuts[t], resolved[t], sizes[t, max_cuts],
     telem, trace)`` as device tensors, ``sizes`` -1 beyond each tenant's
     cuts. ``ctx``: this rank's shard of a mesh (:func:`make_fleet_wave`);
-    the loop's predicate stays the replicated counter."""
-    tcfg = _tenant_cfg(cfg, knobs)
-    t = state.alive.shape[0]
-    dev = state.alive.device
-    steps = torch.zeros((t,), dtype=torch.int32, device=dev)
-    cuts = torch.zeros((t,), dtype=torch.int32, device=dev)
-    sizes = torch.full((t, max_cuts), -1, dtype=torch.int32, device=dev)
-    slots = torch.arange(max_cuts, dtype=torch.int32, device=dev)
-    # The equal-churn trap guard, as the nested loop's entry condition:
-    # already-at-target resolves vacuously only when no cuts are demanded.
-    done = (state.n_members == target) & (min_cuts <= 0)
+    the loop's predicate stays the replicated counter.
+    :meth:`WaveGraphs.wave` gives the same results from captured graphs."""
+    inputs = _wave_inputs(cfg, faults, knobs, target, max_steps, max_cuts, min_cuts)
+    carry = _wave_start(state, telem, trace, inputs)
     for _ in range(max_steps):
-        active = ~done & (steps < max_steps)
-        with _loop(ctx):
-            round_state, decided, winner, _, round_telem, round_trace = _compute_round(
-                tcfg, state, faults, select=True, telem=telem, trace=trace, ctx=ctx
-            )
-            with _gate(ctx), profiling.span("view_change"):
-                committed = apply_view_change_impl(tcfg, round_state, winner, ctx)
-        with profiling.span("fleet_select"):
-            commit = active & decided
-            state = select_lanes(commit, committed, select_lanes(active, round_state, state))
-            telem = select_lanes(active, round_telem, telem)
-            trace = select_lanes(active, round_trace, trace)
-            steps = steps + active.to(torch.int32)
-            # sizes[cuts] = members where a cut committed; a slot past max_cuts
-            # matches no column, so that write is dropped, as JAX drops it.
-            slot = (slots == cuts[:, None]) & commit[:, None]
-            sizes = torch.where(slot, state.n_members[:, None], sizes)
-            cuts = cuts + commit.to(torch.int32)
-            resolved = (state.n_members == target) & (cuts >= min_cuts)
-            done = done | (commit & resolved) | (cuts >= max_cuts)
-    resolved = (state.n_members == target) & (cuts >= min_cuts)
-    return state, steps, cuts, resolved, sizes, telem, trace
+        carry = _wave_iteration(inputs, carry, ctx)
+    return _wave_results(inputs, carry)
+
+
+#: Lockstep iterations in one captured CUDA graph of a wave (96 = 12 x 8).
+WAVE_GRAPH_CHUNK = 8
+
+#: The round's module-level seams as the package defines them. A replay
+#: runs no Python, so a wrapper put on a seam (a spy, a bound's sum) would
+#: see no call of it: a wave with one in place runs eagerly.
+_ROUND_SEAMS = (virtual_cluster.delivery_new_bits, virtual_cluster._cohort_cut_detection)
+
+
+def _clone(tree):
+    """A copy of a lane, of a tree of lanes, or None."""
+    return tree.clone() if isinstance(tree, torch.Tensor) else map_lanes(torch.clone, tree)
+
+
+def _lanes(*trees) -> list:
+    """Every tensor of ``trees`` (named tuples of lanes, tensors or None)."""
+    out = []
+    for tree in trees:
+        if isinstance(tree, torch.Tensor):
+            out.append(tree)
+        elif tree is not None:
+            out.extend(_lanes(*tree))
+    return out
+
+
+def _copy_into(dst: list, src: list) -> None:
+    for d, s in zip(dst, src, strict=True):
+        d.copy_(s)
+
+
+def _layout(*trees) -> tuple:
+    """What a captured graph is bound to: each lane's shape, dtype and
+    device, and which planes are on."""
+    return tuple(
+        None if tree is None else tuple((tuple(x.shape), x.dtype, x.device) for x in _lanes(tree))
+        for tree in trees
+    )
+
+
+class _WaveChunk:
+    """One wave's inputs and carry held in static buffers, and
+    :data:`WAVE_GRAPH_CHUNK` lockstep iterations over them, captured as one
+    CUDA graph that ends by copying the advanced carry back into its
+    buffers: each replay advances the carry by a chunk. Until
+    :meth:`capture`, a replay runs the chunk as Python, on any device (the
+    CPU tests' way in)."""
+
+    def __init__(self, cfg, state, faults, knobs, target, max_steps, max_cuts, min_cuts, telem,
+                 trace):
+        self.knobs = _clone(knobs)
+        self.inputs = _wave_inputs(cfg, _clone(faults), self.knobs, target.clone(), max_steps,
+                                   max_cuts, min_cuts.clone())
+        self.carry = _wave_start(_clone(state), _clone(telem), _clone(trace), self.inputs)
+        self.graph = None
+        self.launches = 0  # delivery launches in one replay, as the capture counted them
+
+    def load(self, state, faults, knobs, target, min_cuts, telem, trace) -> None:
+        """Copy one wave's inputs and its starting carry into the buffers."""
+        start = _wave_start(state, telem, trace, self.inputs._replace(target=target,
+                                                                       min_cuts=min_cuts))
+        _copy_into(_lanes(self.carry, self.inputs.faults, self.knobs, self.inputs.target,
+                          self.inputs.min_cuts),
+                   _lanes(start, faults, knobs, target, min_cuts))
+
+    def _chunk(self) -> None:
+        carry = self.carry
+        for _ in range(WAVE_GRAPH_CHUNK):
+            carry = _wave_iteration(self.inputs, carry)
+        _copy_into(_lanes(self.carry), _lanes(carry))
+
+    def capture(self) -> None:
+        dev = self.carry.steps.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            # One iteration runs first, on scratch copies, so that every
+            # kernel is loaded before the capture; the carry stays as loaded.
+            _wave_iteration(self.inputs, _WaveCarry(*map(_clone, self.carry)))
+        self.graph = torch.cuda.CUDAGraph()
+        launches = kernels.delivery_new_bits.launches
+        with torch.cuda.graph(self.graph, stream=side):
+            self._chunk()
+        # The capture recorded these launches and ran none: each replay runs them.
+        self.launches = kernels.delivery_new_bits.launches - launches
+        kernels.delivery_new_bits.launches = launches
+
+    def replay(self) -> None:
+        if self.graph is None:
+            self._chunk()
+            return
+        self.graph.replay()
+        kernels.delivery_new_bits.launches += self.launches
+
+
+class WaveGraphs:
+    """A fleet's captured wave chunks, one per layout of the wave's inputs
+    (:data:`WAVE_GRAPH_CHUNK` iterations each). A :class:`TenantFleet`
+    holds one, so the graphs and their memory pools go with the fleet.
+    ``_direct`` (tests only) builds each chunk's static buffers without
+    capturing it, and runs it as Python, on any device."""
+
+    def __init__(self, _direct: bool = False) -> None:
+        self._direct = _direct
+        self._chunks: dict = {}
+
+    def admits(self, state: EngineState, ctx=None) -> bool:
+        """True when a wave over ``state`` may replay: on a card, off a
+        mesh, outside the port's own ``profiling.trace()`` (whose spans are
+        Python) and with no wrapper on a seam of the round."""
+        return (
+            ctx is None
+            and (state.alive.device.type == "cuda" or self._direct)
+            and not profiling.recording()
+            and virtual_cluster.delivery_new_bits is _ROUND_SEAMS[0]
+            and virtual_cluster._cohort_cut_detection is _ROUND_SEAMS[1]
+        )
+
+    def wave(self, cfg, state, faults, knobs, target, max_steps, max_cuts, min_cuts, telem=None,
+             trace=None, ctx=None):
+        """:func:`fleet_wave`'s results, and whether they came from replays.
+        Where :meth:`admits` allows and a chunk fits in ``max_steps``, the
+        inputs are copied into the chunk's buffers, ``max_steps //
+        WAVE_GRAPH_CHUNK`` replays advance them, the rest of the iterations
+        run eagerly, and the results come back as copies, so that no lane
+        the caller holds is a buffer of the graph. Anywhere else the wave
+        runs eagerly."""
+        args = (cfg, state, faults, knobs, target, max_steps, max_cuts, min_cuts)
+        replays = max_steps // WAVE_GRAPH_CHUNK
+        if not replays or not self.admits(state, ctx):
+            return fleet_wave(*args, telem, trace, ctx), False
+        key = (cfg, max_steps, max_cuts, _layout(state, faults, knobs, telem, trace))
+        chunk = self._chunks.get(key)
+        if chunk is None:
+            chunk = self._chunks[key] = _WaveChunk(*args, telem, trace)
+            if not self._direct:
+                chunk.capture()
+        else:
+            chunk.load(state, faults, knobs, target, min_cuts, telem, trace)
+        for _ in range(replays):
+            chunk.replay()
+        carry = chunk.carry
+        for _ in range(max_steps % WAVE_GRAPH_CHUNK):
+            carry = _wave_iteration(chunk.inputs, carry)
+        return tuple(map(_clone, _wave_results(chunk.inputs, carry))), True
 
 
 #: Partition rules for the knob lanes, in the ``parallel/mesh.py`` table
@@ -393,6 +600,8 @@ class TenantFleet(DispatchSeam):
         self.b = b
         self.device = state.alive.device
         self.metrics = Metrics()
+        # The wave's captured CUDA graphs, released with the fleet.
+        self._wave_graphs = WaveGraphs()
         # Attached by serving.StreamDriver and serving.supervisor.Supervisor.
         self.stream = None
         self.recovery = None
@@ -597,11 +806,12 @@ class TenantFleet(DispatchSeam):
             raise ValueError(f"targets must be in [0, {self.cfg.n}]: {targets.tolist()}")
         self._account_h2d(targets, min_cuts)
         with self._dispatch("fleet_wave") as record:
-            self.state, steps, cuts, resolved, sizes, self.telem, self.trace_ring = fleet_wave(
+            out, record.graphed = self._wave_graphs.wave(
                 self.cfg, self.state, self.faults, self.knobs,
                 torch.from_numpy(targets).to(self.device), int(max_steps), int(max_cuts),
                 torch.from_numpy(min_cuts).to(self.device), self.telem, self.trace_ring,
             )
+            self.state, steps, cuts, resolved, sizes, self.telem, self.trace_ring = out
             obs = np.asarray(
                 _host.read(torch.cat([steps, cuts, resolved.to(torch.int32), sizes.reshape(-1)]),
                            "fleet_wave_observation"),

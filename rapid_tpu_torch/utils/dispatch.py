@@ -68,13 +68,16 @@ class DispatchRecord:
     tenants stepped and ``tenant_rounds_computed`` the rounds computed for
     every tenant, lockstep included (0 where the entry fills in none).
     ``read_ns`` is the part of ``wall_ns`` spent in counted reads.
-    ``profiled``: a ``torch.profiler`` session was recording at its start."""
+    ``profiled``: a ``torch.profiler`` session was recording at its start.
+    ``graphed``: the entry replayed a captured CUDA graph (a fleet wave,
+    ``tenancy/fleet.py::WaveGraphs``)."""
 
-    __slots__ = ("entry", "ordinal", "profiled", "wall_ns", "read_ns", "rounds",
+    __slots__ = ("entry", "ordinal", "profiled", "graphed", "wall_ns", "read_ns", "rounds",
                  "tenant_rounds_active", "tenant_rounds_computed")
 
     def __init__(self, entry: str, ordinal: int, profiled: bool):
         self.entry, self.ordinal, self.profiled = entry, ordinal, profiled
+        self.graphed = False
         self.wall_ns = self.read_ns = self.rounds = 0
         self.tenant_rounds_active = self.tenant_rounds_computed = 0
 

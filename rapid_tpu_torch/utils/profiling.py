@@ -83,6 +83,11 @@ class _Off:
 OFF = _Off()
 
 
+def recording() -> bool:
+    """True while a ``trace()`` block records, so that spans are on."""
+    return _recording
+
+
 def span(name: str):
     """The span of a registered phase: a ``record_function`` range named
     ``PREFIX + name`` while a ``trace()`` block records, else :data:`OFF`.

@@ -21,7 +21,9 @@ host library built there with a 2,048-endpoint cluster resumed from a saved
 sharded engine: the delivery kernel on column and cohort shards with
 offsets, and the sharded step, wave and fleet step on one-rank NCCL meshes
 equal to the unsharded engine on the card, and every lane tile of the
-kernel (``pallas_lanes`` 128 to 1,024) equal to width 128.
+kernel (``pallas_lanes`` 128 to 1,024) equal to width 128, and the fleet
+wave replayed from captured CUDA graphs equal to the eager wave, eager
+where a wrapper on a seam or ``profiling.trace()`` needs Python.
 Every test needs a CUDA card and ``nvcc``
 and skips without them. On a GPU machine, from the root of a checkout
 (``--noconftest`` because the suite's conftest configures JAX, which the
@@ -35,7 +37,8 @@ import pytest
 import torch
 
 from chip_smoke import (
-    churn_cluster, delivery_inputs, fleet_clusters, resolve, skip_edge_inputs, sync_checked_wave,
+    churn_cluster, delivery_inputs, fleet_clusters, fleet_on, resolve, skip_edge_inputs,
+    sync_checked_wave,
 )
 from rapid_tpu_torch import _u32
 from rapid_tpu_torch.convert import state_to_numpy
@@ -173,7 +176,8 @@ def test_fleet_on_card_matches_cpu_lane_by_lane(card):
         launches = delivery_new_bits.launches
         got = fleet.run_until_membership(targets, max_steps=48, max_cuts=4, min_cuts=1)
         if device.type == "cuda":
-            assert delivery_new_bits.launches == launches + 48
+            # The new fleet's wave captures its graph after one scratch round.
+            assert delivery_new_bits.launches == launches + 48 + len(fleet._wave_graphs._chunks)
         results[device.type] = [r.tolist() for r in got]
         lanes[device.type] = state_to_numpy(fleet.state)
     assert results["cuda"] == results["cpu"]
@@ -216,6 +220,88 @@ def test_fleet_wave_with_planes_makes_no_synchronizing_call(card):
     for got, ref in ((out[5], fleet.telem), (out[6], fleet.trace_ring)):
         for field, value in state_to_numpy(ref).items():
             np.testing.assert_array_equal(state_to_numpy(got)[field], value, err_msg=field)
+
+
+def _paper1k_fleet(card, tenants=16):
+    """``tenants`` clusters of the benchmark's ``paper1k`` shape (1,000
+    slots, K/H/L 10/9/3, 8 cohorts, spread 2), built on the CPU and moved to
+    the card, with their settled lanes for restores."""
+    from rapid_tpu_torch.tenancy import TenantFleet
+
+    clusters = []
+    for i in range(tenants):
+        vc = VirtualCluster.create(1000, n_slots=1000, k=10, h=9, l=3, cohorts=8, fd_threshold=3,
+                                   seed=300 + i, fallback_rounds=8, delivery_spread=2,
+                                   device=torch.device("cpu"))
+        vc.assign_cohorts_roundrobin()
+        vc.stagger_fd_counts(np.random.default_rng(i), spread_rounds=3)
+        clusters.append(vc)
+    fleet = fleet_on(TenantFleet.from_clusters(clusters), card)
+    return fleet, (fleet.state, fleet.faults)
+
+
+def _crash10(fleet, settled, seed):
+    """Restore the settled lanes, then crash 10 members in every tenant."""
+    fleet.state, fleet.faults = (type(tree)(*(x.clone() for x in tree)) for tree in settled)
+    rng = np.random.default_rng(seed)
+    fleet.stream_crash([[t, s] for t in range(fleet.b)
+                        for s in rng.choice(1000, size=10, replace=False)])
+
+
+@pytest.mark.cuda
+def test_graphed_fleet_wave_equals_the_eager_wave(card):
+    from rapid_tpu_torch.tenancy.fleet import fleet_wave
+    from rapid_tpu_torch.utils import dispatch
+
+    fleet, settled = _paper1k_fleet(card)
+    targets = torch.full((fleet.b,), 990, dtype=torch.int32, device=card)
+    min_cuts = torch.ones_like(targets)
+    for wave in range(2):
+        _crash10(fleet, settled, wave)
+        state, *want, _, _ = fleet_wave(fleet.cfg, fleet.state, fleet.faults, fleet.knobs,
+                                        targets, 96, 4, min_cuts)
+        launches = delivery_new_bits.launches
+        got = fleet.run_until_membership(990, max_steps=96, max_cuts=4, min_cuts=1)
+        # The first wave captures, after one scratch round; each later one
+        # only replays.
+        assert delivery_new_bits.launches == launches + 96 + (wave == 0)
+        assert dispatch.records()[-1].graphed
+        assert len(fleet._wave_graphs._chunks) == 1
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w.cpu().numpy())
+        assert got[2].all() and (got[1] == 1).all(), got
+        want_lanes = state_to_numpy(state)
+        for field, value in state_to_numpy(fleet.state).items():
+            np.testing.assert_array_equal(value, want_lanes[field], err_msg=f"wave {wave} {field}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("why", ["seam", "trace"])
+def test_fleet_wave_runs_eagerly_where_a_replay_would_skip_python(card, monkeypatch, tmp_path,
+                                                                  why):
+    import contextlib
+
+    from rapid_tpu_torch.models import virtual_cluster
+    from rapid_tpu_torch.utils import dispatch, profiling
+
+    fleet, settled = _paper1k_fleet(card, tenants=4)
+    calls = []
+
+    def spy(*args, **kwargs):
+        calls.append(1)
+        return delivery_new_bits(*args, **kwargs)
+
+    _crash10(fleet, settled, 7)
+    if why == "seam":
+        monkeypatch.setattr(virtual_cluster, "delivery_new_bits", spy)
+    launches = delivery_new_bits.launches
+    with profiling.trace(str(tmp_path)) if why == "trace" else contextlib.nullcontext():
+        got = fleet.run_until_membership(990, max_steps=96, max_cuts=4, min_cuts=1)
+    assert got[2].all()
+    assert not dispatch.records()[-1].graphed
+    assert delivery_new_bits.launches == launches + 96
+    assert len(calls) == (96 if why == "seam" else 0)
+    assert not fleet._wave_graphs._chunks
 
 
 @pytest.mark.cuda
