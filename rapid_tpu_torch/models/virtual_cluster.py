@@ -98,10 +98,10 @@ from rapid_tpu_torch.utils.metrics import Metrics
 _NODES, _COHORT = ("nodes",), ("cohort",)
 
 # The spans of a round and its phases, as :func:`_compute_round` numbers
-# them, and of a view change (``profiling.span``).
+# them, of a view change and of a join wave's injection (``profiling.span``).
 profiling.register(
     "round", "edge_masks", "fd_tick", "delivery", "cut_detection", "votes", "tally",
-    "classic", "commit", "planes", "view_change",
+    "classic", "commit", "planes", "view_change", "join_wave",
 )
 
 
@@ -1169,29 +1169,37 @@ class VirtualCluster(DispatchSeam):
 
         ``check_admissible=False`` skips that read: the streaming pipeline's
         spelling, whose driver keeps the slot lifecycle on the host. Then
-        the wave makes no read and no synchronizing call."""
+        the wave makes no read and no synchronizing call.
+
+        The wave leaves an ``inject_join_wave`` dispatch record, whose
+        ``joiners`` is the wave's size and whose read time is the
+        admissibility read's; the gatekeepers' search and the joiners'
+        lanes run inside the ``join_wave`` span."""
         slots = np.asarray(slots)
-        state = self.state
-        idx = self._slot_index(slots)
-        if check_admissible:
-            bad = np.asarray(_host.read((state.alive | state.join_pending | state.retired)[idx],
-                                        "join_admissibility"))
-            self._account_d2h(bad.nbytes)
-            if bad.any():
-                raise ValueError(
-                    f"slots not admissible as joiners (member/pending/retired): "
-                    f"{slots[bad].tolist()}"
+        with self._record_entry("inject_join_wave") as record:
+            record.joiners = len(slots)
+            state = self.state
+            idx = self._slot_index(slots)
+            if check_admissible:
+                bad = np.asarray(_host.read(
+                    (state.alive | state.join_pending | state.retired)[idx], "join_admissibility"))
+                self._account_d2h(bad.nbytes)
+                if bad.any():
+                    raise ValueError(
+                        f"slots not admissible as joiners (member/pending/retired): "
+                        f"{slots[bad].tolist()}"
+                    )
+            with profiling.span("join_wave"):
+                pred = predecessor_of_keys(
+                    state.key_hi, state.key_lo, state.alive,
+                    state.key_hi[:, idx], state.key_lo[:, idx], perm=state.ring_perm,
+                )  # [k, j]
+                self.state = state._replace(
+                    join_pending=state.join_pending.index_fill(0, idx, True),
+                    obs_idx=state.obs_idx.index_copy(1, idx, pred.to(state.obs_idx.dtype)),
+                    inval_obs=state.inval_obs.index_copy(1, idx, pred.to(state.inval_obs.dtype)),
                 )
-        pred = predecessor_of_keys(
-            state.key_hi, state.key_lo, state.alive,
-            state.key_hi[:, idx], state.key_lo[:, idx], perm=state.ring_perm,
-        )  # [k, j]
-        self.state = state._replace(
-            join_pending=state.join_pending.index_fill(0, idx, True),
-            obs_idx=state.obs_idx.index_copy(1, idx, pred.to(state.obs_idx.dtype)),
-            inval_obs=state.inval_obs.index_copy(1, idx, pred.to(state.inval_obs.dtype)),
-        )
-        self._stamp_fired_edges(idx, (pred >= 0).T.contiguous())
+                self._stamp_fired_edges(idx, (pred >= 0).T.contiguous())
 
     def assign_cohorts(self, cohort_of: np.ndarray) -> None:
         """Set every slot's receiver cohort (stored at the cohort dtype)."""
@@ -1339,7 +1347,7 @@ class VirtualCluster(DispatchSeam):
                     self.telem, self.trace_ring,
                 )
             )
-            record.rounds = steps
+            record.rounds, record.cuts = steps, cuts
         # The JAX driver's observation: (steps, cuts, resolved, sizes[max_cuts]) int32.
         self._account_d2h(4 * (3 + max_cuts))
         self._staged.clear()

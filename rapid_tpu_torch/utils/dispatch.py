@@ -19,7 +19,9 @@ Every dispatch also leaves a :class:`DispatchRecord` in a process-wide ring
 of the last :data:`RING_SIZE` (:func:`records`): its wall and counted-read
 nanoseconds, the rounds the entry point computed, and whether a
 ``torch.profiler`` session was recording. Inside a ``profiling.trace()``
-block each dispatch is also a span named after its entry.
+block each dispatch is also a span named after its entry. The port's own
+entries (:data:`RECORDED_ENTRIES`) leave a record and a span the same way,
+but no sample in the registry, which stays the JAX driver's.
 """
 
 from __future__ import annotations
@@ -54,7 +56,15 @@ ENGINE_DISPATCH_PHASES = frozenset({
     "stream_enqueue",
     "stream_fetch",
 })
-profiling.register(*ENGINE_DISPATCH_PHASES)
+#: Entries recorded in the ring (and spanned) that the JAX package's
+#: registry has no phase for: they leave no ``engine_dispatches`` count and
+#: no ``engine_dispatch_ms`` sample (:meth:`DispatchSeam._record_entry`).
+RECORDED_ENTRIES = frozenset({
+    # VirtualCluster's join wave: its admissibility read and the
+    # gatekeepers' search over the K rings.
+    "inject_join_wave",
+})
+profiling.register(*ENGINE_DISPATCH_PHASES, *RECORDED_ENTRIES)
 
 #: Dispatches the ring keeps, oldest dropped first.
 RING_SIZE = 4096
@@ -67,19 +77,22 @@ class DispatchRecord:
     computed in it; for a fleet, ``tenant_rounds_active`` are the rounds
     tenants stepped and ``tenant_rounds_computed`` the rounds computed for
     every tenant, lockstep included (0 where the entry fills in none).
-    ``read_ns`` is the part of ``wall_ns`` spent in counted reads.
+    ``cuts`` are the view changes a cluster's ``run_until_membership``
+    committed, and ``joiners`` the joiners a join wave injected (0 where
+    the entry fills in none). ``read_ns`` is the part of ``wall_ns`` spent in counted reads.
     ``profiled``: a ``torch.profiler`` session was recording at its start.
     ``graphed``: the entry replayed a captured CUDA graph (a fleet wave,
     ``tenancy/fleet.py::WaveGraphs``)."""
 
     __slots__ = ("entry", "ordinal", "profiled", "graphed", "wall_ns", "read_ns", "rounds",
-                 "tenant_rounds_active", "tenant_rounds_computed")
+                 "tenant_rounds_active", "tenant_rounds_computed", "cuts", "joiners")
 
     def __init__(self, entry: str, ordinal: int, profiled: bool):
         self.entry, self.ordinal, self.profiled = entry, ordinal, profiled
         self.graphed = False
         self.wall_ns = self.read_ns = self.rounds = 0
         self.tenant_rounds_active = self.tenant_rounds_computed = 0
+        self.cuts = self.joiners = 0
 
 
 def records() -> List[DispatchRecord]:
@@ -122,13 +135,37 @@ class DispatchSeam:
             )
         self.metrics.inc("engine_dispatches")
         record = DispatchRecord(entry, next(_ordinals), _autograd_profiler._is_profiler_enabled)
-        reads = _host.read_ns()
-        start = time.perf_counter_ns()
         try:
-            with profiling.span(entry):
+            with _recorded(record):
                 yield record
         finally:
-            record.wall_ns = time.perf_counter_ns() - start
-            record.read_ns = _host.read_ns() - reads
-            _ring.append(record)
             self.metrics.record_ms("engine_dispatch", record.wall_ns / 1e6, phase=entry)
+
+    @contextmanager
+    def _record_entry(self, entry: str):
+        """Leave the block's :class:`DispatchRecord` in the ring, as
+        :meth:`_dispatch` does, for one of :data:`RECORDED_ENTRIES`,
+        with nothing charged to the registry."""
+        if entry not in RECORDED_ENTRIES:
+            raise ValueError(
+                f"unregistered recorded entry {entry!r}; add it to "
+                f"rapid_tpu_torch.utils.dispatch.RECORDED_ENTRIES"
+            )
+        record = DispatchRecord(entry, next(_ordinals), _autograd_profiler._is_profiler_enabled)
+        with _recorded(record):
+            yield record
+
+
+@contextmanager
+def _recorded(record: DispatchRecord):
+    """Run the block inside ``record``'s entry span, then fill in its wall
+    and counted-read nanoseconds and append it to the ring."""
+    reads = _host.read_ns()
+    start = time.perf_counter_ns()
+    try:
+        with profiling.span(record.entry):
+            yield
+    finally:
+        record.wall_ns = time.perf_counter_ns() - start
+        record.read_ns = _host.read_ns() - reads
+        _ring.append(record)
