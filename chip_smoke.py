@@ -35,7 +35,8 @@ exits non-zero:
    loop must make no synchronizing call (``torch.cuda.set_sync_debug_mode``);
 8. fleet_path: ``bench.py``'s fleet point on the port as ``bench.py`` writes
    it, 256 tenants x 1,024 members with the telemetry plane on, resolved in
-   one 96-round lockstep wave; in the same call the same waves with the
+   one lockstep wave of at most 96 rounds, which stops once no tenant is
+   active (:func:`wave_exit`); in the same call the same waves with the
    plane off. Per side a warm-up and two timed samples on fresh fleets
    (built on the CPU and copied to the card; the sides take turns), then
    one profiled wave;
@@ -64,9 +65,9 @@ exits non-zero:
    kernels per round;
 13. compact_fleet: one of phase 8's CPU-built fleets (plane on) copied to
    the card wide and narrowed (``narrow_state``), a warm-up and three timed
-   96-round waves per side in turns: equal cuts, rounds and sizes per
-   tenant, the widened compact state equal to the wide one, every tenant
-   healthy (``tenant_health``), int16 index lanes; then the first 8 rounds
+   waves of at most 96 rounds per side in turns: equal cuts, rounds and
+   sizes per tenant, the widened compact state equal to the wide one,
+   every tenant healthy (``tenant_health``), int16 index lanes; then the first 8 rounds
    of a wave profiled per side (kernels per round);
 14. endpoints_path: 102,500 endpoints with hostnames of mixed lengths hashed
    into ring keys on the host (timed), ``VirtualCluster.from_endpoints``
@@ -897,6 +898,21 @@ def fleet_on(fleet, dev):
     return moved
 
 
+def wave_exit(steps, max_steps):
+    """``(iterations, reads)`` of a single-device fleet wave whose tenants
+    stepped ``steps`` (``tenancy/fleet.py::_chunked_wave``): the parts up to
+    the first part boundary at which no tenant is active, one part more
+    where that boundary is read a part late (from the third part on), and
+    the ``fleet_wave_active`` reads waited for."""
+    from rapid_tpu_torch.tenancy.fleet import WAVE_GRAPH_CHUNK
+
+    bounds = [*range(0, max_steps, WAVE_GRAPH_CHUNK), max_steps]
+    parts = len(bounds) - 1
+    idle = next(j for j, b in enumerate(bounds) if b >= int(max(steps, default=0)))
+    ran = idle if idle < 2 else min(idle + 1, parts)
+    return bounds[ran], min(idle + 1, parts - (parts >= 3))
+
+
 def sync_checked_wave(fleet, targets, max_steps, max_cuts, min_cuts):
     """``fleet_wave`` over the fleet's lanes (its planes included) with every
     synchronizing call turned into an error: the wave loop must make none.
@@ -1006,17 +1022,20 @@ def phase_fleet_path(dev, captured=None, built=None):
         wrapped = captured is not None and (side, rep) == order[0]
         check(dispatch.records()[-1].graphed != wrapped,
               f"the {side} wave ran {'eagerly' if wrapped else 'from a graph'}")
-        # A new fleet's first wave captures its graph after one scratch round.
-        captures = len(fleet._wave_graphs._chunks)
-        check(launches == wave["max_steps"] + captures,
-              f"{launches} kernel launches in a {wave['max_steps']}-round wave "
-              f"with {captures} captures")
-        check(reads == 1, f"the wave made {reads} host reads")
+        # A new fleet's first wave captures its graph after one scratch round;
+        # the wave stops once no tenant is active, then reads its results.
+        captures, ran = len(fleet._wave_graphs._chunks), dispatch.records()[-1].rounds
+        check(launches == ran + captures,
+              f"{launches} kernel launches in a wave of {ran} iterations with {captures} captures")
+        check((ran, reads - 1) == wave_exit(rounds, wave["max_steps"]),
+              f"the wave ran {ran} iterations and made {reads} host reads for a slowest "
+              f"tenant of {int(rounds.max())} rounds")
         check((fleet.membership_sizes() == np.asarray(targets)).all(), "a tenant missed its target")
         samples[side].append(dict(
             warmup=rep is None, seed0=50_000 if rep is None else 60_000 + 1_000 * rep, ms=ms,
             view_changes=int(cuts.sum()), view_changes_per_sec=int(cuts.sum()) / (ms / 1e3),
-            max_tenant_rounds=int(rounds.max()), host_reads=reads, kernel_launches=launches,
+            max_tenant_rounds=int(rounds.max()), iterations=ran, host_reads=reads,
+            kernel_launches=launches,
             peak_memory_bytes=torch.cuda.max_memory_allocated(dev),
         ))
         if side == "on":
@@ -1046,10 +1065,11 @@ def phase_fleet_path(dev, captured=None, built=None):
         check(resolved.all(), "profiled fleet wave did not resolve")
         # The device ran every delivery launch counted: the scratch round
         # and the replayed ones.
-        check(prof["delivery_kernels"] == wave["max_steps"] + 1,
+        ran = dispatch.records()[-1].rounds
+        check(prof["delivery_kernels"] == ran + 1,
               f"the profiler saw {prof['delivery_kernels']} delivery kernels in a new fleet's "
-              f"{wave['max_steps']}-round wave")
-        prof["kernels_per_round"] = prof["device_kernels"] / wave["max_steps"]
+              f"wave of {ran} iterations")
+        prof["kernels_per_round"] = prof["device_kernels"] / ran
         timed = [s for s in samples[side] if not s["warmup"]]
         sides[side] = {
             "samples": samples[side],
@@ -1444,6 +1464,7 @@ def phase_compact_fleet(dev, built):
     from rapid_tpu_torch.models.state import pytree_nbytes
     from rapid_tpu_torch.ops.kernels import delivery_new_bits
     from rapid_tpu_torch.tenancy.fleet import tenant_health
+    from rapid_tpu_torch.utils import dispatch
 
     cpu, targets = built
     wave = dict(max_steps=FLEET["max_steps"], max_cuts=4, min_cuts=1)
@@ -1467,15 +1488,18 @@ def phase_compact_fleet(dev, built):
         ms = (time.perf_counter() - start) * 1e3
         launches, reads = delivery_new_bits.launches - launches0, _host.read.count - reads0
         check(result[2].all(), f"{side} fleet: tenants unresolved")
-        # A new fleet's first wave captures its graph after one scratch round.
-        captures = len(fleet._wave_graphs._chunks)
-        check(launches == wave["max_steps"] + captures and reads == 1,
-              f"{side} wave: {launches} launches ({captures} captures), {reads} reads")
+        # A new fleet's first wave captures its graph after one scratch round,
+        # then replays until no tenant is active, then reads its results.
+        captures, ran = len(fleet._wave_graphs._chunks), dispatch.records()[-1].rounds
+        check(ran < wave["max_steps"] and launches == ran + captures
+              and (ran, reads - 1) == wave_exit(result[0], wave["max_steps"]),
+              f"{side} wave: {ran} iterations, {launches} launches ({captures} captures), "
+              f"{reads} reads")
         check(bool(tenant_health(fleet.cfg, fleet.state).all()), f"{side} fleet: a tenant is unhealthy")
         nbytes[side] = (pytree_nbytes(fleet.state) + pytree_nbytes(fleet.faults)) / (fleet.b * fleet.cfg.n)
         samples[side].append(dict(warmup=rep is None, ms=ms, view_changes=int(result[1].sum()),
                                   view_changes_per_sec=int(result[1].sum()) / (ms / 1e3),
-                                  kernel_launches=launches, host_reads=reads,
+                                  iterations=ran, kernel_launches=launches, host_reads=reads,
                                   allocated_before_bytes=before,
                                   peak_memory_bytes=torch.cuda.max_memory_allocated(dev)))
         if side == "compact":
@@ -2086,13 +2110,14 @@ def phase_chaos(dev, captured):
     timed = runs[0]
     n_groups = max(len(s.groups) for s in timed.scenarios)
     # Each phase group's wave is a new fleet's first: where it replays, it
-    # captures its graph after one scratch round.
+    # captures its graph after one scratch round. It stops once no tenant
+    # is active.
     waves = [r for r in dispatch.records() if r.entry == "fleet_wave"]
-    graphed = sum(r.graphed for r in waves)
+    graphed, ran = sum(r.graphed for r in waves), sum(r.rounds for r in waves)
     check(len(waves) == n_groups, f"{len(waves)} fleet waves for {n_groups} phase groups")
-    check(launches == n_groups * max_steps + graphed + timed.soak_rounds,
-          f"{launches} delivery launches for {n_groups} waves ({graphed} graphed) and "
-          f"{timed.soak_rounds} soak rounds")
+    check(launches == ran + graphed + timed.soak_rounds,
+          f"{launches} delivery launches for {n_groups} waves of {ran} iterations in all "
+          f"({graphed} graphed) and {timed.soak_rounds} soak rounds")
 
     # The same specs through the port on the CPU: equal records.
     specs = chaos.fleet_specs(b, CHAOS["timed_seed"])
@@ -2127,7 +2152,7 @@ def phase_chaos(dev, captured):
         dev, lambda: fleet.run_until_membership(targets, max_steps=max_steps, max_cuts=8,
                                                 min_cuts=min_cuts))
     check(resolved.all(), "profiled chaos wave did not resolve")
-    prof["kernels_per_round"] = prof["device_kernels"] / max_steps
+    prof["kernels_per_round"] = prof["device_kernels"] / dispatch.records()[-1].rounds
     lap("profiled_wave")
 
     # The tampered fleet: shrunk and written on the card, replayed on the CPU.

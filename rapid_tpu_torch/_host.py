@@ -7,6 +7,7 @@ the device. All such reads in the engine go through :func:`read`, whose
 per round); :func:`upload` counts its calls the same way. Each read names
 its call site from :data:`READ_SITES`, and the process keeps a count and
 the nanoseconds spent waiting in it per site (:func:`site_totals`).
+:func:`read_later` is a read whose wait comes later than its copy.
 
 The other way, a plain ``torch.from_numpy(arr).to("cuda")`` copies from
 pageable memory and synchronizes the stream: every upload would wait for
@@ -16,6 +17,7 @@ spelling, which does not wait.
 
 from __future__ import annotations
 
+import functools
 import time
 from typing import Dict, List, Tuple
 
@@ -34,6 +36,7 @@ READ_SITES = frozenset({
     "decision_observation",
     "join_admissibility",
     # The fleet's loops.
+    "fleet_wave_active",
     "fleet_wave_observation",
     "fleet_decision_predicate",
     "fleet_decision_observation",
@@ -66,16 +69,49 @@ def read(t: torch.Tensor, site: str):
     """``t.tolist()`` (a Python scalar for a 0-d tensor), counted, and
     timed into ``site``'s totals. Raises ``ValueError`` for a site not in
     :data:`READ_SITES`."""
-    global _ns
+    return _counted(site, t.tolist)
+
+
+def read_later(t: torch.Tensor, site: str):
+    """:func:`read` of ``t`` queued now and waited for later. On a card
+    ``t`` is copied into pinned host memory behind the work on the current
+    stream; the function returned waits for that copy alone, so the work
+    queued after this call runs on while the host waits. Its first call
+    returns the value as :func:`read` does, counted and timed into
+    ``site``'s totals; a later call returns the same value uncounted."""
+    _site(site)
+    if t.device.type != "cuda":
+        return functools.cache(lambda: _counted(site, t.tolist))
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    copy_event = torch.cuda.Event()
+    copy_event.record(torch.cuda.current_stream(t.device))
+
+    def value():
+        copy_event.synchronize()
+        return host.tolist()
+
+    return functools.cache(lambda: _counted(site, value))
+
+
+def _site(site: str) -> List[int]:
+    """``site``'s totals; ``ValueError`` for a site not in :data:`READ_SITES`."""
     totals = _totals.get(site)
     if totals is None:
         raise ValueError(
             f"unregistered read site {site!r}; add it to rapid_tpu_torch._host.READ_SITES"
         )
+    return totals
+
+
+def _counted(site: str, value):
+    """``value()``, counted and timed into ``site``'s totals."""
+    global _ns
+    totals = _site(site)
     read.count += 1
     with profiling.span(_SPANS[site]):
         start = time.perf_counter_ns()
-        out = t.tolist()
+        out = value()
         ns = time.perf_counter_ns() - start
     totals[0] += 1
     totals[1] += ns

@@ -22,15 +22,21 @@ What vmap does to the single cluster's control flow, the port writes out:
   iterations, one round per tenant each, the view change select-applied
   and finished or quarantined tenants frozen through the ``done`` lane. The
   loop's only predicate is a counter, so it makes no host read: the results
-  come back in one packed read after it;
-- on a card, :meth:`TenantFleet.run_until_membership` replays the wave's
-  iterations from captured CUDA graphs of :data:`WAVE_GRAPH_CHUNK`
-  iterations each (:class:`WaveGraphs`): the same ops on static copies of
-  the wave's inputs, lane for lane the eager wave's results, without the
-  host issuing each of the round's ~850 operations. It runs eagerly where a
-  replay could not be the eager wave: off a card, on a mesh, inside the
-  port's own ``profiling.trace()`` (whose spans are Python), or with a
-  wrapper on a seam of the round;
+  come back in one packed read after it. On a mesh (:func:`make_fleet_wave`)
+  it stays so, since "is any tenant still active" would be a collective
+  across the tenant axis;
+- on one device, :meth:`TenantFleet.run_until_membership` runs the wave's
+  iterations in chunks of :data:`WAVE_GRAPH_CHUNK` (:class:`WaveGraphs`)
+  and stops once a counted read before a chunk finds no tenant active
+  (from the third chunk on, the read before the chunk still on the card,
+  so that the host launches a chunk while the card computes the last). A
+  frozen tenant's iteration gives back its own lanes, so the results are
+  the whole lockstep wave's, bit for bit. On a card each chunk replays
+  from a captured CUDA graph: the same ops on static copies of the wave's
+  inputs, without the host issuing each of the round's ~850 operations.
+  The chunks run eagerly where a replay could not be the eager wave: off a
+  card, inside the port's own ``profiling.trace()`` (whose spans are
+  Python), or with a wrapper on a seam of the round;
 - :func:`fleet_run_to_decision` is the batched while: tenants that decided
   stop and keep their state, with one read of "any tenant still running"
   per round (the single-device driver).
@@ -257,13 +263,18 @@ def _wave_start(state, telem, trace, inputs: _WaveInputs) -> _WaveCarry:
     )
 
 
+def _active(inputs: _WaveInputs, carry: _WaveCarry) -> torch.Tensor:
+    """[t] bool: the tenants the next iteration steps."""
+    return ~carry.done & (carry.steps < inputs.max_steps)
+
+
 def _wave_iteration(inputs: _WaveInputs, carry: _WaveCarry, ctx=None) -> _WaveCarry:
     """One lockstep iteration: a round for every tenant, the view change
     select-applied, and the tenants that stepped, committed or finished
     accounted; frozen tenants keep their lanes."""
     tcfg, faults, target, min_cuts, max_steps, slots = inputs
     state, telem, trace, steps, cuts, sizes, done = carry
-    active = ~done & (steps < max_steps)
+    active = _active(inputs, carry)
     with _loop(ctx):
         round_state, decided, winner, _, round_telem, round_trace = _compute_round(
             tcfg, state, faults, select=True, telem=telem, trace=trace, ctx=ctx
@@ -319,7 +330,8 @@ def fleet_wave(
     telem, trace)`` as device tensors, ``sizes`` -1 beyond each tenant's
     cuts. ``ctx``: this rank's shard of a mesh (:func:`make_fleet_wave`);
     the loop's predicate stays the replicated counter.
-    :meth:`WaveGraphs.wave` gives the same results from captured graphs."""
+    :meth:`WaveGraphs.wave` gives the same results in chunks that stop once
+    no tenant is active."""
     inputs = _wave_inputs(cfg, faults, knobs, target, max_steps, max_cuts, min_cuts)
     carry = _wave_start(state, telem, trace, inputs)
     for _ in range(max_steps):
@@ -327,8 +339,36 @@ def fleet_wave(
     return _wave_results(inputs, carry)
 
 
-#: Lockstep iterations in one captured CUDA graph of a wave (96 = 12 x 8).
+#: Lockstep iterations in one chunk of a single-device wave, and in one
+#: captured CUDA graph of it (96 = 12 x 8).
 WAVE_GRAPH_CHUNK = 8
+
+
+def _chunked_wave(inputs: _WaveInputs, carry: _WaveCarry, replay=None):
+    """The wave's ``max_steps`` iterations as parts, chunks of
+    :data:`WAVE_GRAPH_CHUNK` and an eager rest, stopped once a counted read
+    before a part finds no tenant active: every later iteration would give
+    each tenant back its own lanes. The host waits for the reads before the
+    first two parts. From the third part on it launches each part on the
+    read before the part still on the card, so that the card computes one
+    part while the host launches the next, at the cost of at most one part
+    that changes nothing. ``replay``, where given, advances a carry by a
+    chunk and returns it (a captured graph's), else a chunk runs eagerly.
+    Returns the carry and the iterations run."""
+    chunks, rest = divmod(inputs.max_steps, WAVE_GRAPH_CHUNK)
+    ran, active = 0, []
+    for i, size in enumerate([WAVE_GRAPH_CHUNK] * chunks + [rest] * bool(rest)):
+        active.append(_host.read_later(_active(inputs, carry).any(), "fleet_wave_active"))
+        if not active[i - 1 if i >= 2 else i]():  # host-sync-ok: the single-device wave's exit, once a part
+            break
+        if replay is not None and size == WAVE_GRAPH_CHUNK:
+            carry = replay(carry)
+        else:
+            for _ in range(size):
+                carry = _wave_iteration(inputs, carry)
+        ran += size
+    return carry, ran
+
 
 #: The round's module-level seams as the package defines them. A replay
 #: runs no Python, so a wrapper put on a seam (a spy, a bound's sum) would
@@ -413,12 +453,14 @@ class _WaveChunk:
         self.launches = kernels.delivery_new_bits.launches - launches
         kernels.delivery_new_bits.launches = launches
 
-    def replay(self) -> None:
+    def replay(self) -> _WaveCarry:
+        """Advance the carry by a chunk, and return it."""
         if self.graph is None:
             self._chunk()
-            return
-        self.graph.replay()
-        kernels.delivery_new_bits.launches += self.launches
+        else:
+            self.graph.replay()
+            kernels.delivery_new_bits.launches += self.launches
+        return self.carry
 
 
 class WaveGraphs:
@@ -432,45 +474,48 @@ class WaveGraphs:
         self._direct = _direct
         self._chunks: dict = {}
 
-    def admits(self, state: EngineState, ctx=None) -> bool:
-        """True when a wave over ``state`` may replay: on a card, off a
-        mesh, outside the port's own ``profiling.trace()`` (whose spans are
+    def admits(self, state: EngineState) -> bool:
+        """True when a single-device wave over ``state`` may replay: on a
+        card, outside the port's own ``profiling.trace()`` (whose spans are
         Python) and with no wrapper on a seam of the round."""
         return (
-            ctx is None
-            and (state.alive.device.type == "cuda" or self._direct)
+            (state.alive.device.type == "cuda" or self._direct)
             and not profiling.recording()
             and virtual_cluster.delivery_new_bits is _ROUND_SEAMS[0]
             and virtual_cluster._cohort_cut_detection is _ROUND_SEAMS[1]
         )
 
     def wave(self, cfg, state, faults, knobs, target, max_steps, max_cuts, min_cuts, telem=None,
-             trace=None, ctx=None):
-        """:func:`fleet_wave`'s results, and whether they came from replays.
-        Where :meth:`admits` allows and a chunk fits in ``max_steps``, the
-        inputs are copied into the chunk's buffers, ``max_steps //
-        WAVE_GRAPH_CHUNK`` replays advance them, the rest of the iterations
-        run eagerly, and the results come back as copies, so that no lane
-        the caller holds is a buffer of the graph. Anywhere else the wave
-        runs eagerly."""
-        args = (cfg, state, faults, knobs, target, max_steps, max_cuts, min_cuts)
-        replays = max_steps // WAVE_GRAPH_CHUNK
-        if not replays or not self.admits(state, ctx):
-            return fleet_wave(*args, telem, trace, ctx), False
+             trace=None):
+        """:func:`fleet_wave`'s results, whether a replay gave them, and the
+        iterations run, which stop once no tenant is active
+        (:func:`_chunked_wave`). Where :meth:`admits` allows and a chunk
+        fits in ``max_steps``, the first chunk copies the inputs into the
+        chunk's buffers (capturing its graph the first time), each chunk is
+        a replay, the rest of the iterations run eagerly, and the results
+        come back as copies, so that no lane the caller holds is a buffer
+        of the graph. Anywhere else the chunks run eagerly."""
+        inputs = _wave_inputs(cfg, faults, knobs, target, max_steps, max_cuts, min_cuts)
+        start = _wave_start(state, telem, trace, inputs)
+        if max_steps < WAVE_GRAPH_CHUNK or not self.admits(state):
+            carry, ran = _chunked_wave(inputs, start)
+            return _wave_results(inputs, carry), False, ran
         key = (cfg, max_steps, max_cuts, _layout(state, faults, knobs, telem, trace))
         chunk = self._chunks.get(key)
-        if chunk is None:
-            chunk = self._chunks[key] = _WaveChunk(*args, telem, trace)
-            if not self._direct:
-                chunk.capture()
-        else:
-            chunk.load(state, faults, knobs, target, min_cuts, telem, trace)
-        for _ in range(replays):
-            chunk.replay()
-        carry = chunk.carry
-        for _ in range(max_steps % WAVE_GRAPH_CHUNK):
-            carry = _wave_iteration(chunk.inputs, carry)
-        return tuple(map(_clone, _wave_results(chunk.inputs, carry))), True
+
+        def replay(carry):
+            nonlocal chunk
+            if chunk is None:
+                chunk = self._chunks[key] = _WaveChunk(
+                    cfg, state, faults, knobs, target, max_steps, max_cuts, min_cuts, telem, trace)
+                if not self._direct:
+                    chunk.capture()
+            elif carry is not chunk.carry:
+                chunk.load(state, faults, knobs, target, min_cuts, telem, trace)
+            return chunk.replay()
+
+        carry, ran = _chunked_wave(inputs, start, replay)
+        return tuple(map(_clone, _wave_results(inputs, carry))), ran >= WAVE_GRAPH_CHUNK, ran
 
 
 #: Partition rules for the knob lanes, in the ``parallel/mesh.py`` table
@@ -784,8 +829,9 @@ class TenantFleet(DispatchSeam):
     def run_until_membership(self, targets, max_steps: int = 192, max_cuts: int = 8, min_cuts=0):
         """The fleet wave: every tenant resolves its own churn, through its
         own number of view changes, to its own target membership, in one
-        lockstep loop. ``targets``/``min_cuts`` broadcast from scalars or
-        give one value per tenant. Returns ``(rounds[t], cuts[t],
+        lockstep loop that stops once no tenant is active
+        (:meth:`WaveGraphs.wave`). ``targets``/``min_cuts`` broadcast from
+        scalars or give one value per tenant. Returns ``(rounds[t], cuts[t],
         resolved[t], sizes[t, max_cuts])`` as host arrays, from one packed
         read after the loop."""
         targets = np.broadcast_to(np.asarray(targets, dtype=np.int32), (self.b,)).copy()
@@ -806,7 +852,7 @@ class TenantFleet(DispatchSeam):
             raise ValueError(f"targets must be in [0, {self.cfg.n}]: {targets.tolist()}")
         self._account_h2d(targets, min_cuts)
         with self._dispatch("fleet_wave") as record:
-            out, record.graphed = self._wave_graphs.wave(
+            out, record.graphed, record.rounds = self._wave_graphs.wave(
                 self.cfg, self.state, self.faults, self.knobs,
                 torch.from_numpy(targets).to(self.device), int(max_steps), int(max_cuts),
                 torch.from_numpy(min_cuts).to(self.device), self.telem, self.trace_ring,
@@ -817,10 +863,9 @@ class TenantFleet(DispatchSeam):
                            "fleet_wave_observation"),
                 dtype=np.int32,
             )
-            # Lockstep: every one of the max_steps rounds is computed for every tenant.
-            record.rounds = int(max_steps)
+            # Every iteration the wave ran computed a round for every tenant.
             record.tenant_rounds_active = int(obs[: self.b].sum())
-            record.tenant_rounds_computed = self.b * int(max_steps)
+            record.tenant_rounds_computed = self.b * record.rounds
         self._account_d2h(obs.nbytes)
         self._staged.clear()
         b = self.b

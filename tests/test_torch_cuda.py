@@ -38,7 +38,7 @@ import torch
 
 from chip_smoke import (
     churn_cluster, delivery_inputs, fleet_clusters, fleet_on, resolve, skip_edge_inputs,
-    sync_checked_wave,
+    sync_checked_wave, wave_exit,
 )
 from rapid_tpu_torch import _u32
 from rapid_tpu_torch.convert import state_to_numpy
@@ -168,20 +168,25 @@ def test_engine_on_card_matches_cpu_lane_by_lane(card):
 def test_fleet_on_card_matches_cpu_lane_by_lane(card):
     # chip_smoke.py's fleet recipe at 6 tenants of N=128 with C=40.
     from rapid_tpu_torch.tenancy import TenantFleet
+    from rapid_tpu_torch.utils import dispatch
 
-    lanes, results = {}, {}
+    lanes, results, ran = {}, {}, {}
     for device in (card, torch.device("cpu")):
         clusters, targets = fleet_clusters(6, 128, 4, 40, 11, device, ((9, 4), (8, 3), (7, 2)))
         fleet = TenantFleet.from_clusters(clusters)
         launches = delivery_new_bits.launches
         got = fleet.run_until_membership(targets, max_steps=48, max_cuts=4, min_cuts=1)
+        ran[device.type] = dispatch.records()[-1].rounds
         if device.type == "cuda":
-            # The new fleet's wave captures its graph after one scratch round.
-            assert delivery_new_bits.launches == launches + 48 + len(fleet._wave_graphs._chunks)
+            # The new fleet's wave captures its graph after one scratch round,
+            # then replays until no tenant is active.
+            assert delivery_new_bits.launches == (launches + ran["cuda"]
+                                                  + len(fleet._wave_graphs._chunks))
         results[device.type] = [r.tolist() for r in got]
         lanes[device.type] = state_to_numpy(fleet.state)
     assert results["cuda"] == results["cpu"]
     assert all(results["cuda"][2]), results
+    assert ran["cuda"] == ran["cpu"] == wave_exit(results["cuda"][0], 48)[0] < 48
     for field, want in lanes["cpu"].items():
         np.testing.assert_array_equal(lanes["cuda"][field], want, err_msg=field)
 
@@ -250,7 +255,7 @@ def _crash10(fleet, settled, seed):
 
 @pytest.mark.cuda
 def test_graphed_fleet_wave_equals_the_eager_wave(card):
-    from rapid_tpu_torch.tenancy.fleet import fleet_wave
+    from rapid_tpu_torch.tenancy.fleet import WAVE_GRAPH_CHUNK, fleet_wave
     from rapid_tpu_torch.utils import dispatch
 
     fleet, settled = _paper1k_fleet(card)
@@ -263,9 +268,12 @@ def test_graphed_fleet_wave_equals_the_eager_wave(card):
         launches = delivery_new_bits.launches
         got = fleet.run_until_membership(990, max_steps=96, max_cuts=4, min_cuts=1)
         # The first wave captures, after one scratch round; each later one
-        # only replays.
-        assert delivery_new_bits.launches == launches + 96 + (wave == 0)
-        assert dispatch.records()[-1].graphed
+        # only replays. Every tenant is done after one chunk, so one replay
+        # runs.
+        record = dispatch.records()[-1]
+        assert record.rounds == WAVE_GRAPH_CHUNK >= got[0].max()
+        assert delivery_new_bits.launches == launches + record.rounds + (wave == 0)
+        assert record.graphed and record.tenant_rounds_computed == fleet.b * record.rounds
         assert len(fleet._wave_graphs._chunks) == 1
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g, w.cpu().numpy())
@@ -273,6 +281,36 @@ def test_graphed_fleet_wave_equals_the_eager_wave(card):
         want_lanes = state_to_numpy(state)
         for field, value in state_to_numpy(fleet.state).items():
             np.testing.assert_array_equal(value, want_lanes[field], err_msg=f"wave {wave} {field}")
+
+
+@pytest.mark.cuda
+def test_a_graphed_wave_that_needs_its_whole_budget_equals_the_eager_wave(card):
+    # One tenant's target is out of its reach, so it is active through all
+    # five chunks: from the third on, the host launches each chunk before it
+    # waits for the read made before the chunk still on the card.
+    from rapid_tpu_torch import _host
+    from rapid_tpu_torch.tenancy.fleet import fleet_wave
+    from rapid_tpu_torch.utils import dispatch
+
+    fleet, settled = _paper1k_fleet(card, tenants=4)
+    _crash10(fleet, settled, 3)
+    targets = np.array([980, 990, 990, 990], dtype=np.int32)
+    target = torch.from_numpy(targets).to(card)
+    state, *want, _, _ = fleet_wave(fleet.cfg, fleet.state, fleet.faults, fleet.knobs, target,
+                                    40, 4, torch.ones_like(target))
+    launches, reads = delivery_new_bits.launches, _host.site_totals()["fleet_wave_active"][0]
+    got = fleet.run_until_membership(targets, max_steps=40, max_cuts=4, min_cuts=1)
+    record = dispatch.records()[-1]
+    assert record.graphed and (record.rounds, 4) == wave_exit(got[0], 40) == (40, 4)
+    assert _host.site_totals()["fleet_wave_active"][0] == reads + 4
+    # The new fleet's wave captures its graph after one scratch round.
+    assert delivery_new_bits.launches == launches + 40 + 1
+    assert got[0][0] == 40 and not got[2][0] and got[2][1:].all(), got
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w.cpu().numpy())
+    want_lanes = state_to_numpy(state)
+    for field, value in state_to_numpy(fleet.state).items():
+        np.testing.assert_array_equal(value, want_lanes[field], err_msg=field)
 
 
 @pytest.mark.cuda
@@ -298,9 +336,12 @@ def test_fleet_wave_runs_eagerly_where_a_replay_would_skip_python(card, monkeypa
     with profiling.trace(str(tmp_path)) if why == "trace" else contextlib.nullcontext():
         got = fleet.run_until_membership(990, max_steps=96, max_cuts=4, min_cuts=1)
     assert got[2].all()
-    assert not dispatch.records()[-1].graphed
-    assert delivery_new_bits.launches == launches + 96
-    assert len(calls) == (96 if why == "seam" else 0)
+    record = dispatch.records()[-1]
+    assert not record.graphed
+    # The eager chunks stop where the replays would: after the first chunk.
+    assert record.rounds == 8
+    assert delivery_new_bits.launches == launches + record.rounds
+    assert len(calls) == (record.rounds if why == "seam" else 0)
     assert not fleet._wave_graphs._chunks
 
 

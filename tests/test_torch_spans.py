@@ -22,7 +22,7 @@ import pytest
 import torch
 
 from benchmark import core as bench_core
-from chip_smoke import churn_cluster, resolve
+from chip_smoke import churn_cluster, resolve, wave_exit
 from rapid_tpu_torch import _host
 from rapid_tpu_torch.models.virtual_cluster import VirtualCluster
 from rapid_tpu_torch.tenancy import TenantFleet
@@ -82,11 +82,28 @@ def test_an_unregistered_read_site_raises_before_reading(site):
     assert (_host.read.count, _host.site_totals()) == (count, totals)
 
 
+def test_a_read_later_is_counted_once_when_first_waited_for():
+    count, (reads, _) = _host.read.count, _host.site_totals()["fleet_wave_active"]
+    value = _host.read_later(torch.tensor([True, False]).any(), "fleet_wave_active")
+    assert _host.read.count == count
+    assert value() is True and value() is True
+    assert (_host.read.count, _host.site_totals()["fleet_wave_active"][0]) == (count + 1, reads + 1)
+
+
+@pytest.mark.parametrize("site", ["churn", "read.fleet_wave_active"])
+def test_an_unregistered_site_raises_before_a_read_later_is_queued(site):
+    count, totals = _host.read.count, _host.site_totals()
+    with pytest.raises(ValueError, match="unregistered read site"):
+        _host.read_later(torch.zeros(2), site)
+    assert (_host.read.count, _host.site_totals()) == (count, totals)
+
+
 def _read_calls():
     for path in sorted((REPO / "rapid_tpu_torch").rglob("*.py")):
         for node in ast.walk(ast.parse(path.read_text())):
             if (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
-                    and node.func.attr == "read" and isinstance(node.func.value, ast.Name)
+                    and node.func.attr in ("read", "read_later")
+                    and isinstance(node.func.value, ast.Name)
                     and node.func.value.id == "_host"):
                 yield f"{path.relative_to(REPO)}:{node.lineno}", node
 
@@ -163,10 +180,12 @@ def test_a_fleet_wave_counts_tenant_rounds_active_and_computed():
         64 - 3, max_steps=max_steps, max_cuts=4, min_cuts=1)
     (record,) = dispatch.records()
     assert record.entry == "fleet_wave" and resolved.all()
-    assert record.rounds == max_steps
+    # The wave stops once no tenant is active (chip_smoke.wave_exit).
+    ran = wave_exit(rounds, max_steps)[0]
+    assert record.rounds == ran < max_steps
     assert record.tenant_rounds_active == int(rounds.sum())
-    assert record.tenant_rounds_computed == fleet.b * max_steps
-    assert record.tenant_rounds_active < record.tenant_rounds_computed
+    assert record.tenant_rounds_computed == fleet.b * ran
+    assert record.tenant_rounds_active <= record.tenant_rounds_computed
 
 
 def test_a_fleet_decision_counts_its_slowest_tenant_for_every_tenant():
