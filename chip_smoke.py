@@ -281,10 +281,13 @@ exits non-zero:
    shape's best width, at 1,024 and at 128: equal rounds, cuts and lanes. The
    captured rounds of 26 and 27 go through phase 10's checks.
 
-A kernel's bound (``delivery_bound``) is the larger of its bytes (each
-input once, the output once) over the HBM rate and the delay draws its
-inputs need (unblocked edges with ``0 <= age < spread``) times the
-operations of one draw over the int32 issue rate.
+A kernel's bound is the benchmark's (``benchmark/roofline.py``'s
+``delivery_bound``, here in ms): the larger of its bytes (each input once,
+the output once) over the HBM rate and the delay draws its inputs need
+(unblocked edges with ``0 <= age < spread``) times the operations of one
+draw over the int32 issue rate. Each profile is the benchmark's fenced
+session (``benchmark/profiling.py``) under this script's keys
+(:func:`profile_ms`).
 
 The delivery kernel's launch count is zeroed just before each of the
 paths 4, 5, 8, 12 (churn and 1M), 13, 14, 15 (each stream), 16 (each drill
@@ -317,25 +320,23 @@ import time
 import numpy as np
 import torch
 
-# Published H100 SXM peaks (NVIDIA data sheet): 3.35 TB/s of HBM; 67 TFLOP/s
-# fp32 outside the tensor cores, which counts an FMA as two operations on
-# 128 lanes per SM. Hopper has 64 INT32 lanes per SM, so its int32 issue
-# peak is a quarter of that figure.
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 67e12 / 4
+from benchmark import profiling, roofline
+from rapid_tpu_torch.testing import (
+    FLEET, HEADLINE, STREAM, all_lanes, batch_drive, churn_cluster, comparable_snapshot,
+    decided_paths, delivery_inputs, endpoint_churn, endpoint_list, fleet_clusters, fleet_on,
+    fleet_records, host_service_crash, plane_lanes, resolve, run_stream, seeded_node_ids,
+    skip_edge_inputs, stream_cluster, sync_checked_wave, wave_exit,
+)
+
 
 # The three delay modes, (spread, permille): none, uniform (the paths'), gated.
 DELAY_MODES = ((0, 1000), (2, 1000), (3, 300))
 # Bytes of input sets a cold timing rotates through: over twice the 50 MB L2.
 COLD_BYTES = 120e6
 
-HEADLINE = dict(n=100_000, n_join=2_500, n_crash=2_500, k=10, cohorts=64, spread=2)
 # bench.py's crash-1% scale point: N members, 8 cohorts, N // 100 crashes.
 SCALE = dict(n=1_000_000, cohorts=8)
 TIMED_SAMPLES = 5  # per side of the plane-on / plane-off comparison
-# bench.py's fleet point: B tenants of N members, n_extra = N // 50 extra
-# slots, 8 cohorts, K=10, fd_threshold 3, spread 2, one 96-round wave.
-FLEET = dict(tenants=256, n=1_024, n_extra=20, k=10, cohorts=8, spread=2, max_steps=96)
 # Per side of the plane-on / plane-off comparison: 2 since phase 24 came
 # (5 before), the cut that keeps the whole run inside its time limit.
 FLEET_TIMED_SAMPLES = 2
@@ -401,109 +402,6 @@ def cuda_ms(fn, reps=30, warmup=5, runs=3, graph=True):
     return statistics.median(times)
 
 
-def delivery_ops_per_draw(spread, permille):
-    """Integer operations of one needed delay draw, counted from
-    csrc/delivery.cu: the ring salt (2), a mix32 (8) and a modulus (1); in
-    the gated mode also the second stream's xor, mix32, modulus and compare
-    (11) and the magnitude's add and select (2). None are drawn when every
-    delay is 0."""
-    if spread == 0:
-        return 0
-    return 11 if permille >= 1000 else 24
-
-
-def delivery_needed_draws(blocked, age, k, c, spread):
-    """Delay draws these inputs need, counted with torch ops on their
-    device: unblocked (tenant, cohort, slot, ring) edges with ``0 <= age <
-    spread``. Below 0 an edge is not delivered whatever the draw; at or
-    above ``spread`` (the largest delay) it is delivered iff unblocked."""
-    from rapid_tpu_torch import _u32
-    from rapid_tpu_torch.ops.kernels import popcount32
-
-    if spread == 0:
-        return 0
-    if age.dim() == 2:
-        blocked, age = blocked[None], age[None]
-    t, _, n = age.shape
-    words = blocked.reshape(t, -1, k, n)
-    pending = ((age >= 0) & (age < spread)).to(torch.int64)
-    total = 0
-    for wi in range(words.shape[1]):
-        cohort_bits = (1 << min(32, c - 32 * wi)) - 1
-        unblocked = popcount32((_u32.widen(words[:, wi]) ^ _u32.MASK) & cohort_bits)
-        total += int((unblocked * pending).sum())
-    return total
-
-
-def delivery_bound(blocked, age, epoch, k, c, spread, permille, *offsets):
-    """(bound_ms, bound_by, needed draws) of one delivery call on these
-    inputs (one cluster or a fleet). Bytes: each input read once and the
-    ``[t, c, n]`` output written once. Operations: the draws these inputs
-    need (:func:`delivery_needed_draws`) times the operations of one draw
-    (:func:`delivery_ops_per_draw`); the per-edge test is not counted, since
-    a word-wide kernel forms 32 outputs with a few operations. The larger of
-    the two times, at the H100's HBM rate and int32 issue rate. A shard's
-    ``offsets`` (global slot and cohort of its first column and row) move
-    no bytes and change no count."""
-    n = age.shape[-1]
-    nbytes = 4 * (blocked.numel() + age.numel() + epoch.numel() + epoch.numel() * c * n)
-    draws = delivery_needed_draws(blocked, age, k, c, spread)
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = draws * delivery_ops_per_draw(spread, permille) / INT32_OPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), draws
-
-
-def delivery_inputs(c, k, n, seed, dev, t=None):
-    """Seeded delivery inputs for one cluster, or with ``t`` for a fleet of
-    ``t`` tenants with distinct epochs."""
-    from rapid_tpu_torch import _u32
-
-    rng = np.random.default_rng(seed)
-    w = (c + 31) // 32
-    lead = () if t is None else (t,)
-    blocked = rng.integers(0, 2**32, size=lead + (w * k, n), dtype=np.uint32)
-    blocked &= rng.integers(0, 2**32, size=lead + (w * k, n), dtype=np.uint32)  # ~1/4 bits set
-    age = rng.integers(-3, 6, size=lead + (k, n)).astype(np.int32)
-    age[rng.random(lead + (k, n)) < 0.2] = -(1 << 30)  # edges that never fired
-    epoch = [seed % 7] if t is None else rng.permutation(4 * t)[:t]
-    return (
-        _u32.from_numpy(blocked, dev),
-        torch.from_numpy(age).to(dev),
-        torch.tensor(epoch, dtype=torch.int32, device=dev),
-    )
-
-
-def skip_edge_inputs(kind, c, k, n, spread, seed, dev, t=None):
-    """:func:`delivery_inputs` moved to the edges of the kernel's skips.
-    ``edges``: ages -2^30, -1, 0, spread - 1, spread, spread + 1 in turn
-    along tenants, rings and slots; ``all_blocked`` / ``none_blocked``: the
-    same ages with every or no cohort blocked; ``all_pending``: every age in
-    ``[0, spread)`` (needs spread >= 1); ``misaligned``: the seeded inputs
-    one element past a 16-byte boundary."""
-    blocked, age, epoch = delivery_inputs(c, k, n, seed, dev, t=t)
-    if kind == "misaligned":
-        def shifted(x):
-            buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
-            buf[1:] = x.reshape(-1)
-            return buf[1:].view(x.shape)
-        return shifted(blocked), shifted(age), epoch
-    if kind == "all_pending":
-        rng = np.random.default_rng(seed)
-        age = torch.from_numpy(rng.integers(0, spread, size=age.shape).astype(np.int32)).to(dev)
-        return blocked, age, epoch
-    edges = torch.tensor([-(1 << 30), -1, 0, spread - 1, spread, spread + 1], dtype=torch.int32)
-    lead = age.shape[:-2]
-    pos = torch.arange(k)[:, None] + torch.arange(n)[None, :]
-    if lead:
-        pos = pos + torch.arange(lead[0])[:, None, None]
-    age = edges[pos % len(edges)].to(dev).contiguous()
-    if kind == "all_blocked":
-        blocked = torch.full_like(blocked, -1)
-    elif kind == "none_blocked":
-        blocked = torch.zeros_like(blocked)
-    return blocked, age, epoch
-
-
 def kernel_modes(dev, c, k, n, seed_base, t=None):
     """The delivery kernel against its plain version, bit for bit, at one
     shape in the three delay modes, each timed warm (one input set) and
@@ -525,8 +423,9 @@ def kernel_modes(dev, c, k, n, seed_base, t=None):
         err = int((_u32.widen(got) - _u32.widen(want)).abs().max())
         check(torch.equal(got, want),
               f"delivery kernel differs (t={t}, c={c}, n={n}, spread={spread}, permille={permille})")
-        bound_ms, bound_by, draws = delivery_bound(*args[0])
-        cold_bound_ms = statistics.mean(delivery_bound(*a)[0] for a in args)
+        bound_s, bound_by, draws = roofline.delivery_bound(*args[0])
+        bound_ms = bound_s * 1e3
+        cold_bound_ms = statistics.mean(roofline.delivery_bound(*a)[0] for a in args) * 1e3
         clocks_before = smi("clocks.sm,clocks.max.sm")
         ms = cuda_ms(lambda: delivery_new_bits(*args[0]))
         cold_ms = cuda_ms([functools.partial(delivery_new_bits, *a) for a in args])
@@ -567,33 +466,6 @@ def phase_kernel(dev):
     emit({"phase": "kernel", "shape": {"c": c, "k": k, "n": n}, "modes": modes,
           "ragged_bit_exact": ragged})
     return modes, inputs
-
-
-def churn_cluster(n, n_join, n_crash, cohorts, seed, device, delivery_spread=HEADLINE["spread"],
-                  delivery_prob_permille=1000, **planes):
-    """bench.py's 5%-churn build: round-robin cohorts, FD counters staggered
-    over 3 rounds, ``n_crash`` crashes and ``n_join`` joins, with the
-    delivery knobs given (bench.py's clean churn by default, its loss
-    variant with ``loss_as_engine_delivery``'s). ``planes``: ``telemetry`` /
-    ``trace`` for ``VirtualCluster.create``."""
-    from rapid_tpu_torch.models.virtual_cluster import VirtualCluster
-
-    vc = VirtualCluster.create(
-        n, n_slots=n + n_join, k=HEADLINE["k"], h=9, l=4, cohorts=cohorts, fd_threshold=3,
-        seed=seed, delivery_spread=delivery_spread, concurrent_coordinators=2,
-        delivery_prob_permille=delivery_prob_permille, device=device, **planes,
-    )
-    vc.assign_cohorts_roundrobin()
-    rng = np.random.default_rng(seed + 1000)
-    vc.stagger_fd_counts(rng, spread_rounds=3)
-    victims = rng.choice(n, size=n_crash, replace=False)
-    vc.crash(victims)
-    vc.inject_join_wave(np.arange(n, n + n_join))
-    return vc, victims
-
-
-def resolve(vc, n):
-    return vc.run_until_membership(n, max_steps=96 * 4, max_cuts=4, min_cuts=1)
 
 
 def phase_engine(dev):
@@ -715,91 +587,23 @@ def phase_main_path(dev, captured=None):
     return total_launches
 
 
-#: Seconds of ``torch.cuda._sleep`` kernels launched inside a profiler
-#: window before the profiled call, and again after it. On the H100 a
-#: session loses the kernels of a span near its start, and the span grows
-#: with the process: a whole 33-kernel ``sync`` call, or ~55 kernels a
-#: session ~700 s into ``chip_smoke.py``, whatever the idle wait before
-#: the call. Marker kernels fill that span instead of the call's.
-PROFILE_LEAD_S = 0.02
-#: Clock cycles of one marker kernel (~30 us), so a span holds hundreds of
-#: records, not tens of thousands.
-PROFILE_MARKER_CYCLES = 50_000
-#: The host range around each span of marker kernels.
-PROFILE_SPAN = "chip_smoke.profile_markers"
-
-
-def is_profile_marker(name):
-    """The device rows ``profile_run`` adds around the profiled call:
-    ``torch.cuda._sleep``'s and ``exponential_``'s kernels (the port uses
-    neither) and the device side of the host ranges around them."""
-    return name == PROFILE_SPAN or "spin_kernel" in name or is_profile_fence(name)
-
-
-def is_profile_fence(name):
-    return "exponential" in name or "distribution" in name
-
-
-def profile_run(dev, run, lead_s=PROFILE_LEAD_S):
-    """``run()`` once under torch.profiler: the device busy share of the
-    profiled wall clock, the delivery kernel's share of device time and the
-    kernels that take the most device time. ``lead_s`` seconds of marker
-    kernels go before the call and after it, and the call is fenced by one
-    ``exponential_`` kernel before it and one after, each waited for;
-    ``"recorded"`` says whether the session holds both fences, and so
-    every kernel of the call. Returns (run's result, profile)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    scratch = torch.empty(1, device=dev)
-
-    def markers():
-        end = time.perf_counter() + lead_s
-        while time.perf_counter() < end:
-            for _ in range(32):
-                torch.cuda._sleep(PROFILE_MARKER_CYCLES)
-            torch.cuda.synchronize(dev)
-
-    def fence():
-        scratch.exponential_()
-        torch.cuda.synchronize(dev)
-
-    torch.cuda.synchronize(dev)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        with record_function(PROFILE_SPAN):
-            markers()
-        fence()
-        start = time.perf_counter()
-        result = run()
-        torch.cuda.synchronize(dev)
-        wall_ms = (time.perf_counter() - start) * 1e3
-        fence()
-        with record_function(PROFILE_SPAN):
-            markers()
-    device_names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-    fences = sum(1 for name in device_names if is_profile_fence(name))
-    leads = sum(1 for name in device_names if "spin_kernel" in name)
-    # Kernel rows only: CPU-side op rows carry their kernels' device time too.
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-               and e.self_device_time_total > 0 and not is_profile_marker(e.key)]
-    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    delivery_ms = sum(e.self_device_time_total for e in kernels
-                      if "delivery_new_bits_kernel" in e.key) / 1e3
-    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:10]
-    host_ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU
-                and e.key not in ("aten::exponential_", PROFILE_SPAN)]
+def profile_ms(dev, run, lead_s=profiling.PROFILE_LEAD_S):
+    """``run()`` once in the benchmark's fenced profiler session
+    (``benchmark/profiling.py``), its profile under this script's keys, in
+    ms: the device busy share is the union of device intervals over the
+    wall clock, device time and ``device_kernels`` count copies too, and
+    ``top`` gives the device operations that took most time. Returns
+    (run's result, profile)."""
+    result, prof = profiling.profile_run(dev, run, lead_s)
     return result, {
-        "wall_ms": wall_ms, "device_ms": device_ms,
-        "host_op_self_ms": sum(e.self_cpu_time_total for e in host_ops) / 1e3,
-        "host_ops": sum(e.count for e in host_ops),
-        "device_busy_share": device_ms / wall_ms,
-        "delivery_device_ms": delivery_ms,
-        "delivery_share": delivery_ms / device_ms if device_ms else None,
-        "delivery_kernels": sum(e.count for e in kernels if "delivery_new_bits_kernel" in e.key),
-        "device_kernels": sum(e.count for e in kernels),
-        "top": [[e.key[:80], e.count, e.self_device_time_total / 1e3] for e in top],
-        "marker_kernels_recorded": leads,
-        "recorded": fences == 2,
+        "wall_ms": prof["wall_s"] * 1e3, "device_ms": prof["device_s"] * 1e3,
+        "host_op_self_ms": prof["host_self_s"] * 1e3, "host_ops": prof["host_events"],
+        "device_busy_share": prof["busy_s"] / prof["wall_s"],
+        "delivery_device_ms": prof["delivery_s"] * 1e3,
+        "delivery_share": prof["delivery_s"] / prof["device_s"] if prof["device_s"] else None,
+        "delivery_kernels": prof["delivery_launches"], "device_kernels": prof["device_ops"],
+        "top": [[name[:80], s * 1e3] for name, s in prof["breakdown"]["device_ops"]],
+        "recorded": prof["recorded"],
     }
 
 
@@ -808,7 +612,7 @@ def profile_churn(dev, **planes):
     ``telemetry`` / ``trace``), always on the same seed."""
     vc, _ = churn_cluster(HEADLINE["n"], HEADLINE["n_join"], HEADLINE["n_crash"],
                           HEADLINE["cohorts"], 9, dev, **planes)
-    (rounds, _, resolved, _), prof = profile_run(dev, lambda: resolve(vc, HEADLINE["n"]))
+    (rounds, _, resolved, _), prof = profile_ms(dev, lambda: resolve(vc, HEADLINE["n"]))
     check(resolved, "profiled churn did not resolve")
     return {"rounds": rounds, "kernels_per_round": prof["device_kernels"] / rounds, **prof}
 
@@ -856,80 +660,6 @@ def phase_kernel_fleet(dev):
     emit({"phase": "kernel_fleet", "shape": {"t": t, "c": c, "k": k, "n": n}, "modes": modes,
           "ragged_bit_exact": ragged})
     return modes, inputs
-
-
-def fleet_clusters(tenants, n, n_extra, cohorts, seed0, device, knobs=((9, 4), (8, 3)), **planes):
-    """``bench.py``'s ``build_fleet``: tenants cycling the crash-wave,
-    join-wave and equal-churn families by ``i % 3``, (H, L) cycling
-    ``knobs``, seeds ``seed0 + i``; ``planes`` (``telemetry`` / ``trace``)
-    go to ``VirtualCluster.create``. Returns (clusters, targets)."""
-    from rapid_tpu_torch.models.virtual_cluster import VirtualCluster
-
-    clusters, targets = [], []
-    for i in range(tenants):
-        h, l = knobs[i % len(knobs)]
-        vc = VirtualCluster.create(
-            n, n_slots=n + n_extra, k=FLEET["k"], h=h, l=l, cohorts=cohorts, fd_threshold=3,
-            seed=seed0 + i, delivery_spread=FLEET["spread"], device=device, **planes,
-        )
-        vc.assign_cohorts_roundrobin()
-        rng = np.random.default_rng(seed0 + 10_000 + i)
-        vc.stagger_fd_counts(rng, spread_rounds=3)
-        family = i % 3
-        if family != 1:  # crash wave, or the crash half of equal churn
-            vc.crash(rng.choice(n, size=n_extra, replace=False))
-        if family != 0:  # join wave, or the join half of equal churn
-            vc.inject_join_wave(np.arange(n, n + n_extra))
-        targets.append(n + n_extra * (int(family == 1) - int(family == 0)))
-        clusters.append(vc)
-    return clusters, targets
-
-
-def fleet_on(fleet, dev):
-    """The same fleet with every lane, plane lanes included, copied to ``dev``."""
-    from rapid_tpu_torch.models.state import map_lanes
-    from rapid_tpu_torch.tenancy import TenantFleet
-
-    def move(tree):
-        return map_lanes(lambda x: x.to(dev), tree)
-
-    moved = TenantFleet(fleet.cfg, move(fleet.state), move(fleet.faults), move(fleet.knobs))
-    moved.telem, moved.trace_ring = move(fleet.telem), move(fleet.trace_ring)
-    return moved
-
-
-def wave_exit(steps, max_steps):
-    """``(iterations, reads)`` of a single-device fleet wave whose tenants
-    stepped ``steps`` (``tenancy/fleet.py::_chunked_wave``): the parts up to
-    the first part boundary at which no tenant is active, one part more
-    where that boundary is read a part late (from the third part on), and
-    the ``fleet_wave_active`` reads waited for."""
-    from rapid_tpu_torch.tenancy.fleet import WAVE_GRAPH_CHUNK
-
-    bounds = [*range(0, max_steps, WAVE_GRAPH_CHUNK), max_steps]
-    parts = len(bounds) - 1
-    idle = next(j for j, b in enumerate(bounds) if b >= int(max(steps, default=0)))
-    ran = idle if idle < 2 else min(idle + 1, parts)
-    return bounds[ran], min(idle + 1, parts - (parts >= 3))
-
-
-def sync_checked_wave(fleet, targets, max_steps, max_cuts, min_cuts):
-    """``fleet_wave`` over the fleet's lanes (its planes included) with every
-    synchronizing call turned into an error: the wave loop must make none.
-    ``min_cuts``: one value, or one per tenant. Returns what ``fleet_wave``
-    returns."""
-    from rapid_tpu_torch.tenancy.fleet import fleet_wave
-
-    target_t = torch.tensor(targets, dtype=torch.int32, device=fleet.device)
-    min_t = torch.tensor(np.broadcast_to(min_cuts, target_t.shape), dtype=torch.int32,
-                         device=fleet.device)
-    torch.cuda.synchronize(fleet.device)
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        return fleet_wave(fleet.cfg, fleet.state, fleet.faults, fleet.knobs, target_t,
-                          max_steps, max_cuts, min_t, fleet.telem, fleet.trace_ring)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
 
 
 def phase_fleet_engine(dev):
@@ -1059,7 +789,7 @@ def phase_fleet_path(dev, captured=None, built=None):
     sides = {}
     for side in ("on", "off"):
         fleet, targets = fresh(70_000, side == "on")
-        (_, _, resolved, _), prof = profile_run(
+        (_, _, resolved, _), prof = profile_ms(
             dev, lambda: fleet.run_until_membership(targets, **wave)
         )
         check(resolved.all(), "profiled fleet wave did not resolve")
@@ -1106,10 +836,10 @@ def captured_report(name, rounds):
     for i, args in enumerate(rounds):
         check(torch.equal(delivery_new_bits(*args), delivery_new_bits_ref(*args)),
               f"delivery kernel differs on {name} round {i}")
-    bounds = [delivery_bound(*args) for args in rounds]
+    bounds = [roofline.delivery_bound(*args) for args in rounds]
     edges = sum(args[1].numel() * args[4] for args in rounds)  # k*n*t rings x c cohorts
     ms = pass_ms(delivery_new_bits, rounds)
-    bound_ms = sum(b[0] for b in bounds)
+    bound_ms = sum(b[0] for b in bounds) * 1e3
     return dict(
         rounds=len(rounds), spread=rounds[0][5], permille=rounds[0][6],
         shape=list(rounds[0][1].shape), ms=ms, ms_per_launch=ms / len(rounds),
@@ -1205,13 +935,6 @@ def launch_us(dev, count=2000):
         x.add_(1)
     torch.cuda.synchronize(dev)
     return (time.perf_counter() - start) / count * 1e6
-
-
-def plane_lanes(tree):
-    """Every lane of a state, fault, telemetry or ring tree as numpy."""
-    from rapid_tpu_torch.convert import state_to_numpy
-
-    return {} if tree is None else state_to_numpy(tree)
 
 
 def check_same_lanes(got, want, what):
@@ -1516,7 +1239,7 @@ def phase_compact_fleet(dev, built):
     for side in sides:
         fleet = fleet_on(cpu, dev)
         fleet = compact_fleet(fleet) if side == "compact" else fleet
-        _, profiles[side] = profile_run(
+        _, profiles[side] = profile_ms(
             dev, lambda: fleet.run_until_membership(targets, **{**wave, "max_steps": profiled_rounds}))
         profiles[side]["kernels_per_round"] = profiles[side]["device_kernels"] / profiled_rounds
         del fleet
@@ -1534,32 +1257,6 @@ def phase_compact_fleet(dev, built):
           "ms_compact_over_wide": side_summary("compact")["median_ms"] / side_summary("wide")["median_ms"],
           "launches": total, "widened_equal_to_wide": len(order) // 2, "tenants_healthy": True})
     return total
-
-
-def endpoint_list(count):
-    """``count`` endpoints with hostnames of mixed lengths and varied ports."""
-    from rapid_tpu_torch.types import Endpoint
-
-    return [Endpoint(f"node-{i}.r{i % 97}.dc{i % 3}.example", 7000 + (i * 7919) % 50_000)
-            for i in range(count)]
-
-
-def endpoint_churn(endpoints, n, n_join, n_crash, device):
-    """A compact endpoint cluster of ``n`` members and ``n_join`` keyed
-    joiner slots (the churn's geometry), its cohorts assigned, ``n_crash``
-    seeded crashes and the joiners injected. Returns (cluster, victims)."""
-    from rapid_tpu_torch.models.virtual_cluster import VirtualCluster
-
-    vc = VirtualCluster.from_endpoints(
-        endpoints, n_members=n, n_slots=n + n_join, k=HEADLINE["k"], h=9, l=4,
-        cohorts=HEADLINE["cohorts"], fd_threshold=3, delivery_spread=HEADLINE["spread"],
-        concurrent_coordinators=2, compact=True, device=device,
-    )
-    vc.assign_cohorts_roundrobin()
-    victims = np.random.default_rng(n).choice(n, size=n_crash, replace=False)
-    vc.crash(victims)
-    vc.inject_join_wave(np.arange(n, n + n_join))
-    return vc, victims
 
 
 def phase_endpoints_path(dev):
@@ -1617,12 +1314,6 @@ def phase_endpoints_path(dev):
 
 # -- phases 15-16: the serving tier ----------------------------------------
 
-# bench.py's stream stage as it writes it for an accelerator: N=4,096 members
-# (2 x 64 spare slots for the joins), K=10, H=9, L=4, 8 cohorts, fd_threshold
-# 3, spread 2, the plane and a ring of the whole stage's 512 rounds on, 64
-# waves of 8 rounds 2 deep; a fleet of 4 such tenants.
-STREAM = dict(n=4_096, cohorts=8, waves=64, rounds=8, depth=2, tenants=4, rate=2.0,
-              fleet_rate=0.5, cpu_waves=8)
 # The same single-cluster stream at the headline churn's geometry.
 STREAM_HEADLINE = dict(n=HEADLINE["n"], n_slots=HEADLINE["n"] + HEADLINE["n_join"],
                        cohorts=HEADLINE["cohorts"], trace=128, waves=16, rate=64.0)
@@ -1631,19 +1322,6 @@ STREAM_HEADLINE = dict(n=HEADLINE["n"], n_slots=HEADLINE["n"] + HEADLINE["n_join
 # without churn on the twin and the resumed drill, so that a cut still
 # pending (at N=100,000 a 4-round wave ends before its cut) commits on both.
 RECOVERY = dict(waves=16, rounds=4, every=5, kill_after=8, settle_waves=2)
-
-
-def stream_cluster(n, n_slots, cohorts, trace, seed, device, telemetry=True):
-    """bench.py's stream cluster (its recovery cluster with the planes off)."""
-    from rapid_tpu_torch.models.virtual_cluster import VirtualCluster
-
-    vc = VirtualCluster.create(
-        n, n_slots=n_slots, k=HEADLINE["k"], h=9, l=4, cohorts=cohorts, fd_threshold=3, seed=seed,
-        delivery_spread=HEADLINE["spread"], telemetry=telemetry, trace=trace if telemetry else 0,
-        device=device,
-    )
-    vc.assign_cohorts_roundrobin()
-    return vc
 
 
 def stream_fleet(seed0, device):
@@ -1655,80 +1333,6 @@ def stream_fleet(seed0, device):
         stream_cluster(n, n, STREAM["cohorts"], trace, seed0 + i, device)
         for i in range(STREAM["tenants"])
     ])
-
-
-def sync_checked_stream(target, **shape):
-    """A StreamDriver over ``target`` whose every wave application and every
-    streamed round run with each synchronizing call an error, and whose
-    submits make no counted read: only the ticket waits may block."""
-    from rapid_tpu_torch import _host
-    from rapid_tpu_torch.serving import StreamDriver
-
-    def checked(fn, *args):
-        reads = _host.read.count
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            out = fn(*args)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        check(_host.read.count == reads, f"{fn.__name__} read the host on the stream path")
-        return out
-
-    class Checked(StreamDriver):
-        def submit(self, wave):
-            reads = _host.read.count
-            super().submit(wave)
-            check(_host.read.count == reads, "a submit read the host")
-
-        def _apply(self, wave):
-            checked(super()._apply, wave)
-
-    step = target.stream_step
-    target.stream_step = lambda: checked(step)
-    return Checked(target, **shape)
-
-
-def batch_drive(target, waves, rounds):
-    """The batch spelling of a stream schedule: the injection seams (the
-    join's admissibility read included) and ``step()`` rounds."""
-    from rapid_tpu_torch.serving import FleetWave
-
-    for wave in waves:
-        if isinstance(wave, FleetWave):
-            if wave.crash:
-                target.stream_crash(wave.crash)
-        else:
-            if wave.crash:
-                target.crash(list(wave.crash))
-            if wave.join:
-                target.inject_join_wave(list(wave.join))
-        for _ in range(rounds):
-            target.step()
-
-
-def all_lanes(target):
-    return {**plane_lanes(target.state), **plane_lanes(target.faults),
-            **{f"telem.{k}": v for k, v in plane_lanes(target.telem).items()},
-            **{f"trace.{k}": v for k, v in plane_lanes(target.trace_ring).items()}}
-
-
-def run_stream(dev, target, waves, checked=True):
-    """``waves`` through a (sync-checked) driver 8 rounds, 2 deep; returns
-    (driver, StreamResult as a dict, delivery launches)."""
-    from rapid_tpu_torch.ops.kernels import delivery_new_bits
-    from rapid_tpu_torch.serving import StreamDriver
-
-    shape = dict(rounds_per_wave=STREAM["rounds"], depth=STREAM["depth"])
-    driver = sync_checked_stream(target, **shape) if checked else StreamDriver(target, **shape)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    delivery_new_bits.launches = 0
-    for wave in waves:
-        driver.submit(wave)
-    result = driver.drain()
-    launches = delivery_new_bits.launches
-    check(result.waves == len(waves) and result.cuts > 0, f"stream result {result}")
-    return driver, result._asdict(), launches
 
 
 def stream_vs_batch(dev, build, waves, what):
@@ -1762,7 +1366,7 @@ def kernels_per_round(dev, build, wave, rounds=8):
         if wave.join:
             vc.inject_join_wave(list(wave.join), check_admissible=False)
         run = getattr(vc, name)
-        _, prof = profile_run(dev, lambda: [run() for _ in range(rounds)])
+        _, prof = profile_ms(dev, lambda: [run() for _ in range(rounds)])
         out[name] = {"kernels_per_round": prof["device_kernels"] / rounds,
                      "wall_ms_per_round": prof["wall_ms"] / rounds,
                      "device_ms_per_round": prof["device_ms"] / rounds,
@@ -2038,19 +1642,6 @@ def keeping_runs(runs):
         chaos.run_fleet = real
 
 
-def fleet_records(result):
-    """Every tenant's phase records, final slots and soak cuts, and the
-    run's totals, as plain values."""
-    return dict(
-        phases=[[(r.resolved, r.cuts, r.config_id, r.config_epoch, r.members) for r in records]
-                for records in result.phases],
-        final_slots=[sorted(slots) for slots in result.final_slots],
-        soak_cuts=None if result.soak_cuts is None else result.soak_cuts.tolist(),
-        total_rounds=result.total_rounds, total_cuts=result.total_cuts,
-        dispatches=result.dispatches,
-    )
-
-
 def first_group_fleet(specs, dev):
     """The fleet of ``specs`` as ``run_fleet`` stacks it for its first
     phase-group wave: compiled on the CPU (the same lanes, without ~10
@@ -2148,7 +1739,7 @@ def phase_chaos(dev, captured):
     check(got == want, "sync-checked first wave differs from the timed run's first group")
     lap("sync_checked_wave")
     fleet, targets, min_cuts = first_group_fleet(specs, dev)
-    (_, cuts, resolved, _), prof = profile_run(
+    (_, cuts, resolved, _), prof = profile_ms(
         dev, lambda: fleet.run_until_membership(targets, max_steps=max_steps, max_cuts=8,
                                                 min_cuts=min_cuts))
     check(resolved.all(), "profiled chaos wave did not resolve")
@@ -2257,31 +1848,6 @@ def phase_loss_variant(dev, captured):
 # -- phase 19: engine observability ------------------------------------------
 
 OBSERVE = dict(trace=64, twin_n=4_096, twin_churn=102, stream_waves=8, cpu_fleet=6)
-
-
-def comparable_snapshot(snap):
-    """``snap`` as plain JSON without what may rightly differ between two
-    runs of the same drive (a card and the CPU, or the port and the JAX
-    package): the ``compile`` and ``memory`` sections, each ``*_ms``
-    histogram but its count, and the stream's drained rates and the
-    recovery MTTR (wall clock) but whether they are set."""
-    snap = json.loads(json.dumps(snap))
-    engine = snap["engine"]
-    engine.pop("compile")
-    engine.pop("memory")
-    for name, value in snap["metrics"].items():
-        if isinstance(value, dict):
-            snap["metrics"][name] = (
-                value["count"] if "count" in value
-                else {phase: hist["count"] for phase, hist in value.items()}
-            )
-    for section, keys in (("stream", ("view_changes_per_sec", "overlap_efficiency",
-                                      "p99_alert_to_commit_ms")),
-                          ("recovery", ("mttr_ms",))):
-        for key in keys:
-            if section in engine:
-                engine[section][key] = engine[section][key] is None
-    return snap
 
 
 def scrape(target):
@@ -2600,8 +2166,8 @@ def host_cut_detectors(dev):
             det.clear()
     if dev.type == "cuda":
         det = DeviceCutDetector(k, h, l, device=dev)
-        _, prof = profile_run(dev, lambda: [det.aggregate_batch(b.messages, view)
-                                            for b in waves["crash"]])
+        _, prof = profile_ms(dev, lambda: [det.aggregate_batch(b.messages, view)
+                                           for b in waves["crash"]])
         report["crash_profiled"] = per_call(prof, det.batches)
     return report
 
@@ -2674,7 +2240,7 @@ def host_vote_tallies(dev):
     profiled = {}
     if dev.type == "cuda":
         again = DeviceVoteTally(n, device=dev)
-        _, prof = profile_run(dev, lambda: run(again))
+        _, prof = profile_ms(dev, lambda: run(again))
         profiled = {"tally_profiled": per_call(prof, again.tallies)}
     return {**profiled, 
         "votes": len(plan), "quorum": quorum, "decided_at_vote": card[1] + 1,
@@ -2710,11 +2276,6 @@ def host_settings():
     s.rpc_probe_timeout_ms = 200
     s.consensus_fallback_base_delay_ms = 2000
     return s
-
-
-def decided_paths(services):
-    return sorted({e.fields.get("path") for s in services for e in s.recorder.events()
-                   if e.name.name == "CONSENSUS_DECIDED"})
 
 
 async def host_cluster_run(dev, adapters):
@@ -2777,91 +2338,6 @@ async def host_cluster_run(dev, adapters):
         }
     finally:
         await asyncio.gather(*(c.shutdown() for c in clusters), return_exceptions=True)
-
-
-async def host_service_crash(dev, adapters, n, cohort=0):
-    """Phase 20 (c) and phase 21 (b), the service-level crash as
-    ``examples/host_scale_ceiling.py`` builds it: n services on one
-    ``InProcessNetwork`` under a ``ManualClock``, one crash. ``cohort`` > 0
-    sets ``hier_target_cohort_size``, so ``Cluster._service_class`` gives
-    ``HierMembershipService`` (which passes no vote tally on)."""
-    import asyncio
-    import random
-
-    from rapid_tpu_torch.messaging.inprocess import (
-        InProcessClient, InProcessNetwork, InProcessServer,
-    )
-    from rapid_tpu_torch.monitoring.static_fd import StaticFailureDetectorFactory
-    from rapid_tpu_torch.protocol import (
-        Cluster, DeviceCutDetector, DeviceVoteTally, MembershipView, MultiNodeCutDetector,
-    )
-    from rapid_tpu_torch.settings import Settings
-    from rapid_tpu_torch.types import Endpoint, NodeId
-    from rapid_tpu_torch.utils.clock import ManualClock
-
-    settings = Settings()
-    settings.hier_target_cohort_size = cohort
-    service_class = Cluster._service_class(settings)
-    endpoints = [Endpoint(f"10.20.{i // 250}.{i % 250}", 6000 + i) for i in range(n)]
-    node_ids = [NodeId(0, i) for i in range(n)]
-    network, clock, fd = InProcessNetwork(), ManualClock(), StaticFailureDetectorFactory()
-    services, servers, tallies = [], [], []
-
-    def tally_factory(size):
-        tallies.append(DeviceVoteTally(size, device=dev))
-        return tallies[-1]
-
-    for i in range(n):
-        view = MembershipView(settings.k, node_ids=node_ids, endpoints=endpoints)
-        client = InProcessClient(network, endpoints[i], settings)
-        detector = (DeviceCutDetector(settings.k, settings.h, settings.l, device=dev) if adapters
-                    else MultiNodeCutDetector(settings.k, settings.h, settings.l))
-        service = service_class(
-            my_addr=endpoints[i], cut_detector=detector, view=view, settings=settings,
-            client=client, fd_factory=fd, clock=clock, rng=random.Random(i), node_id=node_ids[i],
-            vote_tally_factory=tally_factory if adapters else None)
-        server = InProcessServer(network, endpoints[i])
-        server.set_membership_service(service)
-        await server.start()
-        await service.start()
-        services.append(service)
-        servers.append(server)
-    victim = endpoints[n // 2]
-    fd.add_failed_nodes([victim])
-    network.blackholed.add(victim)
-    live = [s for s in services if s.my_addr != victim]
-    msgs0 = sum(s.client.stats.msgs_tx for s in services)
-    start, sim_ms = time.perf_counter(), 0
-    while not all(s.membership_size == n - 1 for s in live):
-        clock.advance_ms(50)
-        sim_ms += 50
-        for _ in range(40):
-            await asyncio.sleep(0)
-        check(sim_ms <= 120_000, f"n={n}: no convergence in 120 s of simulated time")
-    wall_ms = (time.perf_counter() - start) * 1e3
-    final = {(s.view.configuration_id, tuple(str(e) for e in s.membership)) for s in live}
-    check(len(final) == 1, f"n={n}: the survivors hold different configurations")
-    counters = {}
-    for s in live:
-        for key, value in s.metrics.counters.items():
-            if key.startswith("cohort_"):
-                counters[key] = counters.get(key, 0) + value
-    out = {"crash_wall_ms": wall_ms, "sim_ms": sim_ms,
-           "msgs": sum(s.client.stats.msgs_tx for s in services) - msgs0,
-           "decision_paths": decided_paths(live), "final": final.pop(),
-           "cohort_counters": counters}
-    if cohort:
-        out["cohorts"] = live[0]._cohort_map.n_cohorts
-    if adapters:
-        kinds = {type(s.cut_detector).__name__ for s in live}
-        check(kinds == {"DeviceCutDetector"}, f"the services ran {kinds}")
-        out["cut_passes"] = sum(s.cut_detector.batches for s in live)
-        out["tallies"] = sum(t.tallies for t in tallies)
-    for server in servers:
-        await server.shutdown()
-    for service in services:
-        await service.shutdown()
-    return out
 
 
 def phase_host_path(dev, card):
@@ -2950,7 +2426,7 @@ def host_sim_grid(dev, captured):
     if dev.type == "cuda":
         result = next(r for r in results if r.schedule.name.startswith("churn_under_loss"))
         before = delivery_new_bits.launches
-        _, prof = profile_run(dev, lambda: replay_through_engine(
+        _, prof = profile_ms(dev, lambda: replay_through_engine(
             result.schedule, result.endpoints, device=dev))
         rounds = delivery_new_bits.launches - before
         report["profiled_replay"] = {"scenario": result.schedule.name, "rounds": rounds,
@@ -3199,13 +2675,6 @@ def without_native():
         yield
     finally:
         _native._lib, _native._attempted = saved
-
-
-def seeded_node_ids(count, seed):
-    from rapid_tpu_torch.types import NodeId
-
-    words = np.random.default_rng(seed).integers(0, 2**64, size=(count, 2), dtype=np.uint64)
-    return [NodeId(int(hi), int(lo)) for hi, lo in words.tolist()]
 
 
 def same_configuration(a, b):
@@ -3536,7 +3005,7 @@ def sharded_churn(dev, mesh, captured):
         else:
             drive = functools.partial(run_until_membership, vc.cfg, vc.state, vc.faults, n, 96 * 4,
                                       4, 1)
-        (_, steps, *_), prof = profile_run(dev, drive)
+        (_, steps, *_), prof = profile_ms(dev, drive)
         profiles[side] = {"kernels_per_round": prof["device_kernels"] / steps,
                           "host_ops_per_round": prof["host_ops"] / steps,
                           **{key: prof[key] for key in ("wall_ms", "device_ms", "host_op_self_ms",
@@ -4283,7 +3752,7 @@ def phase_program_facts(dev, captured):
             spec = build()
             torch.cuda.synchronize(dev)
             delivery_new_bits.launches = 0
-            _, prof = profile_run(dev, spec["call"])
+            _, prof = profile_ms(dev, spec["call"])
             got = delivery_new_bits.launches
             check(got == facts[name]["delivery_calls"],
                   f"{name}: {got} delivery launches, {facts[name]['delivery_calls']} calls")
@@ -4372,8 +3841,8 @@ def phase_cost_dataflow(dev, captured):
     def profiled(name, pt):
         nonlocal lost
         for attempt in range(PROFILE_ATTEMPTS):
-            prof = profile_run(dev, cm.point_spec(name, pt, dev)["call"],
-                               lead_s=PROFILE_LEAD_S * 3 ** attempt)[1]
+            prof = profile_ms(dev, cm.point_spec(name, pt, dev)["call"],
+                              lead_s=profiling.PROFILE_LEAD_S * 3 ** attempt)[1]
             if prof["recorded"]:
                 return prof["device_kernels"]
             lost += 1
@@ -4482,7 +3951,7 @@ def phase_lane_tiles(dev, captured):
                   f"lane tile {lanes} differs from the plain version at {[c, n]}")
         key = f"{c}x{n}"
         lane_tiles[key] = {w: row["per_width_ms"][str(w)] for w in LANE_WIDTHS}
-        bounds[key] = delivery_bound(*args)[0]
+        bounds[key] = roofline.delivery_bound(*args)[0] * 1e3
         del args, want
     churn_rounds = []
     n, n_join, n_crash = HEADLINE["n"], HEADLINE["n_join"], HEADLINE["n_crash"]

@@ -42,6 +42,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from rapid_tpu_torch.testing import (
+    FLEET, HEADLINE, churn_cluster, fleet_clusters, fleet_on, plane_lanes,
+)
+
 #: (mesh shape as a function of the rank count R) per path.
 MESHES = {
     "churn": lambda r: [(1, r), (2, r // 2)],
@@ -108,10 +112,10 @@ def churn(dev, rank, ranks, report):
         full_pytree, make_mesh, make_sharded_wave, shard_faults, shard_state,
     )
 
-    h = cs.HEADLINE
+    h = HEADLINE
 
     def build():
-        vc, _ = cs.churn_cluster(h["n"], h["n_join"], h["n_crash"], h["cohorts"], 4, dev)
+        vc, _ = churn_cluster(h["n"], h["n_join"], h["n_crash"], h["cohorts"], 4, dev)
         return vc
 
     def unsharded(vc):
@@ -122,7 +126,7 @@ def churn(dev, rank, ranks, report):
     base = _unsharded_on_rank0(dev, rank, build, unsharded)
     if rank == 0:
         (state, result), ms, launches, reads = base
-        want = (result, cs.plane_lanes(state))
+        want = (result, plane_lanes(state))
         report["unsharded"] = dict(ms=ms, rounds=result[0], launches=launches, host_reads=reads)
     for shape in MESHES["churn"](ranks):
         mesh = make_mesh(shape=shape, device_type=dev.type)
@@ -134,7 +138,7 @@ def churn(dev, rank, ranks, report):
             (state, *result), ms, launches, reads = _counted(
                 dev, lambda: wave(state, faults, h["n"], 384, 1))
             runs.append(dict(ms=ms, launches=launches, host_reads=reads))
-        lanes = cs.plane_lanes(full_pytree(state))
+        lanes = plane_lanes(full_pytree(state))
         if rank == 0:
             _compare(want, (tuple(result), lanes), f"churn on {shape}")
             cs.check(reads == report["unsharded"]["host_reads"], f"churn on {shape}: reads {reads}")
@@ -154,9 +158,9 @@ def scale_point(dev, rank, ranks, report):
     n, cohorts = cs.SCALE["n"], cs.SCALE["cohorts"]
 
     def build(seed):
-        vc = VirtualCluster.create(n, k=cs.HEADLINE["k"], h=9, l=4, cohorts=cohorts,
+        vc = VirtualCluster.create(n, k=HEADLINE["k"], h=9, l=4, cohorts=cohorts,
                                    fd_threshold=3, seed=seed,
-                                   delivery_spread=cs.HEADLINE["spread"], device=dev)
+                                   delivery_spread=HEADLINE["spread"], device=dev)
         vc.assign_cohorts_roundrobin()
         vc.crash(np.random.default_rng(seed).choice(n, size=n // 100, replace=False))
         return vc
@@ -178,7 +182,7 @@ def scale_point(dev, rank, ranks, report):
     base = _unsharded_on_rank0(dev, rank, lambda: build(8), unsharded)
     if rank == 0:
         (state, rounds), ms, launches, reads = base
-        want = ((rounds,), cs.plane_lanes(state))
+        want = ((rounds,), plane_lanes(state))
         report["unsharded"] = dict(ms=ms, rounds=rounds, launches=launches, host_reads=reads)
     mesh = make_mesh(device_type=dev.type)
     for _ in range(2):  # a warm-up, then the timed run
@@ -191,7 +195,7 @@ def scale_point(dev, rank, ranks, report):
             return s, step.decided
 
         (state, rounds), ms, launches, reads = _counted(dev, lambda: to_decision(advance, state))
-    lanes = cs.plane_lanes(full_pytree(state))
+    lanes = plane_lanes(full_pytree(state))
     if rank == 0:
         _compare(want, ((rounds,), lanes), f"1M point on {(ranks,)}")
         cs.check(reads == report["unsharded"]["host_reads"], f"1M point: reads {reads}")
@@ -209,8 +213,8 @@ def fleet_wave(dev, rank, ranks, report):
     from rapid_tpu_torch.tenancy.fleet import fleet_wave as unsharded_wave
     from rapid_tpu_torch.tenancy.fleet import make_fleet_wave
 
-    f = cs.FLEET
-    clusters, targets = cs.fleet_clusters(f["tenants"], f["n"], f["n_extra"], f["cohorts"], 80_000,
+    f = FLEET
+    clusters, targets = fleet_clusters(f["tenants"], f["n"], f["n_extra"], f["cohorts"], 80_000,
                                           torch.device("cpu"))
     cpu = TenantFleet.from_clusters(clusters)
     target = torch.tensor(targets, dtype=torch.int32, device=dev)
@@ -219,16 +223,16 @@ def fleet_wave(dev, rank, ranks, report):
         return unsharded_wave(fleet.cfg, fleet.state, fleet.faults, fleet.knobs, target,
                               f["max_steps"], 4, min_cuts)
 
-    base = _unsharded_on_rank0(dev, rank, lambda: cs.fleet_on(cpu, dev), unsharded)
+    base = _unsharded_on_rank0(dev, rank, lambda: fleet_on(cpu, dev), unsharded)
     if rank == 0:
         (state, *res, _, _), ms, launches, _ = base
-        want = ([r.tolist() for r in res], cs.plane_lanes(state))
+        want = ([r.tolist() for r in res], plane_lanes(state))
         report["unsharded"] = dict(ms=ms, launches=launches, view_changes=int(res[1].sum()))
     for shape in MESHES["fleet_wave"](ranks):
         mesh = make_mesh(shape=shape, device_type=dev.type)
         runs = []
         for _ in range(2):
-            fleet = cs.fleet_on(cpu, dev)
+            fleet = fleet_on(cpu, dev)
             wave = make_fleet_wave(fleet.cfg, mesh, max_cuts=4)
             state = shard_fleet_state(fleet.state, mesh)
             faults = shard_fleet_faults(fleet.faults, mesh)
@@ -236,7 +240,7 @@ def fleet_wave(dev, rank, ranks, report):
                 state, faults, fleet.knobs, target, f["max_steps"], min_cuts))
             runs.append(dict(ms=ms, launches=launches))
         whole = full_pytree(_Results(*res))
-        lanes = cs.plane_lanes(full_pytree(state))
+        lanes = plane_lanes(full_pytree(state))
         if rank == 0:
             _compare(want, ([r.tolist() for r in whole], lanes), f"fleet wave on {shape}")
             cs.check(launches == f["max_steps"], f"fleet wave on {shape}: {launches} launches")

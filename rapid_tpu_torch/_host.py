@@ -3,8 +3,9 @@
 The JAX engine runs its loops and ``lax.cond`` gates on the device. The port
 runs them in Python, so every gate it branches on is a read that waits for
 the device. All such reads in the engine go through :func:`read`, whose
-``count`` attribute says how many were made (``chip_smoke.py`` reports it
-per round); :func:`upload` counts its calls the same way. Each read names
+``count`` attribute says how many were made: read before and after a
+drive, it gives the drive's reads per round, the figure a host-bound path
+is held to; :func:`upload` counts its calls the same way. Each read names
 its call site from :data:`READ_SITES`, and the process keeps a count and
 the nanoseconds spent waiting in it per site (:func:`site_totals`).
 :func:`read_later` is a read whose wait comes later than its copy.

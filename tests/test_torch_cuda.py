@@ -36,14 +36,14 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (
-    churn_cluster, delivery_inputs, fleet_clusters, fleet_on, resolve, skip_edge_inputs,
-    sync_checked_wave, wave_exit,
-)
 from rapid_tpu_torch import _u32
 from rapid_tpu_torch.convert import state_to_numpy
 from rapid_tpu_torch.models.virtual_cluster import VirtualCluster
 from rapid_tpu_torch.ops.kernels import delivery_new_bits, delivery_new_bits_ref
+from rapid_tpu_torch.testing import (
+    churn_cluster, delivery_inputs, fleet_clusters, fleet_on, resolve, skip_edge_inputs,
+    sync_checked_wave, wave_exit,
+)
 
 @pytest.fixture
 def card():
@@ -52,8 +52,8 @@ def card():
     return torch.device("cuda", 0)
 
 
-# (c, k, n, spread, permille, inputs): "random" is chip_smoke.delivery_inputs,
-# the rest chip_smoke.skip_edge_inputs. k=10 takes the kernel's K=10
+# (c, k, n, spread, permille, inputs): "random" is testing.delivery_inputs,
+# the rest testing.skip_edge_inputs. k=10 takes the kernel's K=10
 # instance, any other k its generic instance.
 @pytest.mark.cuda
 @pytest.mark.parametrize("c,k,n,spread,permille,inputs", [
@@ -148,7 +148,7 @@ def test_delivery_wrapper_raises_on_inputs_split_across_devices(card):
 
 @pytest.mark.cuda
 def test_engine_on_card_matches_cpu_lane_by_lane(card):
-    # chip_smoke.py's 5%-churn recipe at N=512 with C=40 (two cohort words).
+    # testing.churn_cluster's 5%-churn recipe at N=512 with C=40 (two cohort words).
     n, n_churn = 512, 12
     lanes, results = {}, {}
     for device in (card, torch.device("cpu")):
@@ -166,7 +166,7 @@ def test_engine_on_card_matches_cpu_lane_by_lane(card):
 
 @pytest.mark.cuda
 def test_fleet_on_card_matches_cpu_lane_by_lane(card):
-    # chip_smoke.py's fleet recipe at 6 tenants of N=128 with C=40.
+    # testing.fleet_clusters' fleet recipe at 6 tenants of N=128 with C=40.
     from rapid_tpu_torch.tenancy import TenantFleet
     from rapid_tpu_torch.utils import dispatch
 
@@ -402,7 +402,7 @@ def test_compact_fleet_on_card_matches_cpu(card):
 
 @pytest.mark.cuda
 def test_endpoint_cluster_on_card_matches_cpu(card):
-    from chip_smoke import endpoint_churn, endpoint_list
+    from rapid_tpu_torch.testing import endpoint_churn, endpoint_list
 
     lanes, results = {}, {}
     for device in (card, torch.device("cpu")):
@@ -428,7 +428,7 @@ def test_native_host_library_builds_on_the_card_machine(card):
 
 @pytest.mark.cuda
 def test_configuration_resume_on_card_matches_cpu(card, tmp_path):
-    from chip_smoke import endpoint_churn, endpoint_list, seeded_node_ids
+    from rapid_tpu_torch.testing import endpoint_churn, endpoint_list, seeded_node_ids
     from rapid_tpu_torch.protocol.view import MembershipView
     from rapid_tpu_torch.utils.checkpoint import load_configuration, save_configuration
 
@@ -448,7 +448,7 @@ def test_configuration_resume_on_card_matches_cpu(card, tmp_path):
 
 
 def _small_stream_cluster(device, seed=5):
-    from chip_smoke import stream_cluster
+    from rapid_tpu_torch.testing import stream_cluster
 
     return stream_cluster(256, 320, 8, 64, seed, device)
 
@@ -457,9 +457,9 @@ def _small_stream_cluster(device, seed=5):
 def test_stream_on_card_equals_batch_drive_and_cpu(card):
     # A short stream (crashes and joins, 8 waves of 8 rounds, 2 deep) on the
     # card, its wave applications and rounds under the sync check
-    # (chip_smoke.sync_checked_stream), against the same schedule through
+    # (testing.sync_checked_stream), against the same schedule through
     # the batch seams on the card, and the same stream on the CPU.
-    from chip_smoke import all_lanes, batch_drive, run_stream
+    from rapid_tpu_torch.testing import all_lanes, batch_drive, run_stream
     from rapid_tpu_torch.serving import PoissonChurn
 
     waves = PoissonChurn(256, 320, rate=3.0, seed=9).waves(8)
@@ -516,7 +516,7 @@ def test_stream_path_makes_no_read_and_no_synchronizing_call(card):
 def test_chaos_fleet_on_card_matches_cpu(card):
     # The four honest families of the chaos tests as one fleet on the card
     # and on the CPU: equal phase records, final slots and totals.
-    from chip_smoke import fleet_records
+    from rapid_tpu_torch.testing import fleet_records
     from rapid_tpu_torch.tenancy import chaos
 
     specs = [("partition_heal", 5), ("asymmetric_link", 6), ("crash_during_join", 7),
@@ -531,7 +531,7 @@ def test_chaos_fleet_on_card_matches_cpu(card):
 
 @pytest.mark.cuda
 def test_loss_mode_churn_on_card_matches_cpu(card):
-    # chip_smoke.py's churn recipe at N=1,024 with the loss variant's knobs
+    # testing.churn_cluster's churn recipe at N=1,024 with the loss variant's knobs
     # (spread 2, 50 permille: the kernel's gated mode).
     n, n_churn = 1_024, 24
     lanes, results = {}, {}
@@ -796,7 +796,7 @@ def test_check_all_replays_on_card_as_on_cpu(card, family):
 def test_two_cohort_service_with_card_detector_decides_as_host(card):
     import asyncio
 
-    from chip_smoke import host_service_crash
+    from rapid_tpu_torch.testing import host_service_crash
 
     runs = {adapters: asyncio.run(asyncio.wait_for(host_service_crash(card, adapters, 8, 4), 120))
             for adapters in (True, False)}

@@ -3,12 +3,14 @@ kernel's skip edges, on the CPU.
 
 - The fastmod constants the wrapper passes to ``csrc/delivery.cu``, through
   a numpy transcription of the kernel's remainder, against ``%``.
-- ``chip_smoke.delivery_needed_draws`` (the draws a delivery call's inputs
-  need, which its bound counts) against a brute-force numpy count.
+- ``benchmark.roofline.delivery_needed_draws`` (the draws a delivery
+  call's inputs need, which the benchmark's bound counts) against a
+  brute-force numpy count.
 - ``delivery_new_bits_ref`` against the JAX engine's jnp path and the
   Pallas kernel in interpret mode on explicit ages at the edges where the
-  kernel skips draws (``chip_smoke.skip_edge_inputs``). The kernel itself
-  is held to ``delivery_new_bits_ref`` on the card (tests/test_torch_cuda.py).
+  kernel skips draws (``rapid_tpu_torch.testing.skip_edge_inputs``). The
+  kernel itself is held to ``delivery_new_bits_ref`` on the card
+  (tests/test_torch_cuda.py).
 - The lane tile (``EngineConfig.pallas_lanes``): refused with the Pallas
   wrapper's message (run in interpret mode) when it is not a positive
   multiple of 128, on the wrapper and through the engine; passed to the
@@ -24,11 +26,12 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import delivery_inputs, delivery_needed_draws, skip_edge_inputs
+from benchmark.roofline import delivery_needed_draws
 from rapid_tpu.models.virtual_cluster import _deliver_alerts
 from rapid_tpu.ops import pallas_kernels as jpk
 from rapid_tpu_torch import _u32
 from rapid_tpu_torch.ops import kernels as tk
+from rapid_tpu_torch.testing import delivery_inputs, skip_edge_inputs
 
 CPU = torch.device("cpu")
 

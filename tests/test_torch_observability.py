@@ -41,6 +41,7 @@ from rapid_tpu_torch import _build, _host
 from rapid_tpu_torch.models.virtual_cluster import VirtualCluster as TorchCluster
 from rapid_tpu_torch.serving import FleetPoissonChurn, PoissonChurn, Supervisor
 from rapid_tpu_torch.tenancy import TenantFleet as TorchFleet
+from rapid_tpu_torch.testing import comparable_snapshot
 from rapid_tpu_torch.utils import engine_telemetry, exposition, flight_recorder, health, profiling
 from rapid_tpu_torch.utils.clock import ManualClock
 
@@ -49,7 +50,6 @@ sys.path.insert(0, str(REPO / "tools"))
 
 import clustertop  # noqa: E402  — tools/clustertop.py
 import traceview  # noqa: E402  — tools/traceview.py
-from chip_smoke import comparable_snapshot  # noqa: E402
 
 CPU = "cpu"
 R = 10  # ring capacity: the churn's rounds wrap it, its decision stays held

@@ -22,10 +22,10 @@ import pytest
 import torch
 
 from benchmark import core as bench_core
-from chip_smoke import churn_cluster, resolve, wave_exit
 from rapid_tpu_torch import _host
 from rapid_tpu_torch.models.virtual_cluster import VirtualCluster
 from rapid_tpu_torch.tenancy import TenantFleet
+from rapid_tpu_torch.testing import churn_cluster, resolve, wave_exit
 from rapid_tpu_torch.utils import dispatch, profiling
 from rapid_tpu_torch.utils.dispatch import DispatchRecord
 
@@ -180,7 +180,7 @@ def test_a_fleet_wave_counts_tenant_rounds_active_and_computed():
         64 - 3, max_steps=max_steps, max_cuts=4, min_cuts=1)
     (record,) = dispatch.records()
     assert record.entry == "fleet_wave" and resolved.all()
-    # The wave stops once no tenant is active (chip_smoke.wave_exit).
+    # The wave stops once no tenant is active (testing.wave_exit).
     ran = wave_exit(rounds, max_steps)[0]
     assert record.rounds == ran < max_steps
     assert record.tenant_rounds_active == int(rounds.sum())

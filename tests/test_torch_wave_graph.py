@@ -3,9 +3,10 @@ CPU at small N.
 
 On one device the wave's lockstep iterations run in chunks of
 ``WAVE_GRAPH_CHUNK`` and stop once a read before a chunk finds no tenant
-active (``chip_smoke.wave_exit`` says where). On a card each chunk replays from a captured CUDA graph over
-static copies of its inputs (``tests/test_torch_cuda.py`` holds the
-captured graph to the eager wave). Here each chunk runs as Python over the
+active (``rapid_tpu_torch.testing.wave_exit`` says where). On a card each
+chunk replays from a captured CUDA graph over static copies of its inputs
+(``tests/test_torch_cuda.py`` holds the captured graph to the eager
+wave). Here each chunk runs as Python over the
 same static buffers (``_direct``), so everything but the capture is
 checked: the copy-in, the chunks, the exit, the eager remainder, the copies
 handed back, and whether the wave reports a replay; the eager fallback
@@ -17,12 +18,12 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import fleet_clusters, wave_exit
 from rapid_tpu_torch import _host
 from rapid_tpu_torch.models import virtual_cluster
 from rapid_tpu_torch.models.virtual_cluster import VirtualCluster
 from rapid_tpu_torch.tenancy import TenantFleet
 from rapid_tpu_torch.tenancy.fleet import WAVE_GRAPH_CHUNK, WaveGraphs, _lanes, fleet_wave
+from rapid_tpu_torch.testing import fleet_clusters, wave_exit
 from rapid_tpu_torch.utils import dispatch
 
 CPU = torch.device("cpu")
@@ -38,7 +39,7 @@ def assert_same(got, want, what):
 
 def churned_fleet(planes):
     """Four tenants of 32 members: crash, join and equal-churn waves, two
-    knob settings (``chip_smoke.fleet_clusters``)."""
+    knob settings (``rapid_tpu_torch.testing.fleet_clusters``)."""
     clusters, targets = fleet_clusters(4, 32, 4, 4, 900, CPU, **PLANES[planes])
     return TenantFleet.from_clusters(clusters), targets
 
@@ -165,7 +166,7 @@ def test_the_wave_stops_once_no_tenant_is_active(case, path, planes):
     """Through ``run_until_membership``, on the chunk path (``_direct``) and
     on the eager fallback: the results and every lane are the whole
     lockstep wave's, the iterations run and the counted reads are
-    ``chip_smoke.wave_exit``'s, and the dispatch record counts the
+    ``rapid_tpu_torch.testing.wave_exit``'s, and the dispatch record counts the
     iterations run."""
     fd_thresholds, min_cuts, max_steps = EXITS[case]
     fleet, _ = crash_fleet(path == "direct", fd_thresholds, planes)
